@@ -1,0 +1,181 @@
+"""End-to-end parity of the port: `trgt_tpu_torch genotype` with
+`--device cpu` (the kernels' plain PyTorch versions) and `--device host`
+(the host twins) must write the same VCF records and spanning-BAM records
+as `trgt_tpu genotype --device host` on the same synthetic data."""
+
+import os
+import struct
+
+import pytest
+import torch
+
+from trgt_tpu.cli import main as trgt_tpu_main
+from trgt_tpu.io.bam import BamReader
+from trgt_tpu.io.bam_write import BamWriter
+from trgt_tpu.io.bgzf import BgzfReader
+from trgt_tpu.utils.synth import (SynthLocus, adversarial_loci,
+                                  adversarial_mutator, make_dataset)
+from trgt_tpu_torch import device as device_mod
+from trgt_tpu_torch.cli import main as port_main
+from trgt_tpu_torch.engine import pipeline as port_pipeline
+
+# the plain versions issue many tiny ops: with several test workers on
+# one machine, more than one intra-op thread each oversubscribes the cores
+torch.set_num_threads(1)
+
+
+def records(prefix):
+    """(VCF lines after the ## header, spanning-BAM bytes after the BAM
+    header): the headers carry the command line, which differs."""
+    vcf = [line for line in BgzfReader(prefix + ".vcf.gz").read_all()
+           .decode().splitlines() if not line.startswith("##")]
+    data = BgzfReader(prefix + ".spanning.bam").read_all()
+    off = 4
+    (l_text,) = struct.unpack_from("<i", data, off)
+    off += 4 + l_text
+    (n_ref,) = struct.unpack_from("<i", data, off)
+    off += 4
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", data, off)
+        off += 4 + l_name + 4
+    return vcf, data[off:]
+
+
+def genotype(main, dataset, name, extra):
+    td, fasta, bed, bam = dataset
+    prefix = os.path.join(td, name)
+    rc = main(["genotype", "--genome", fasta, "--repeats", bed, "--reads",
+               bam, "--output-prefix", prefix, *extra])
+    assert rc == 0
+    return records(prefix)
+
+
+@pytest.fixture(scope="module")
+def synthetic(tmp_path_factory):
+    # the loci of tests/test_synthetic_e2e.py::test_multi_locus_calls
+    td = str(tmp_path_factory.mktemp("torch_synth"))
+    loci = [SynthLocus("HOM", "CAG", 15, (15, 15)),
+            SynthLocus("HET", "CAG", 10, (10, 20)),
+            SynthLocus("EXP", "GGC", 8, (8, 60)),
+            SynthLocus("REF", "AT", 12, (12, 12))]
+    return (td, *make_dataset(td, loci, depth=20))
+
+
+@pytest.fixture(scope="module")
+def adversarial(tmp_path_factory):
+    td = str(tmp_path_factory.mktemp("torch_adv"))
+    return (td, *make_dataset(td, adversarial_loci(6), seed=7,
+                              read_mutator=adversarial_mutator))
+
+
+@pytest.fixture(scope="module")
+def low_quality(adversarial):
+    """The adversarial reads with read quality 0.85: below 0.9, so the
+    targeted preset's impure-read filter labels every spanning read."""
+    td, fasta, bed, bam = adversarial
+    src = BamReader(bam)
+    out = os.path.join(td, "low_rq.bam")
+    w = BamWriter(out, src.header.text, src.header.references,
+                  build_index=True)
+    for rec in src:
+        w.write_record(rec.qname, rec.flag, rec.ref_id, rec.pos, rec.mapq,
+                       rec.cigar, rec.seq, rec.qual, [("rq", "f", 0.85)])
+    w.close()
+    return td, fasta, bed, out
+
+
+@pytest.fixture
+def viterbi_queries(monkeypatch):
+    """Counts the queries the port's pipeline sends to its Viterbi."""
+    seen = []
+    orig = port_pipeline.viterbi_batch_multi
+
+    def spy(hmms, queries, device):
+        seen.append(len(queries))
+        return orig(hmms, queries, device)
+
+    monkeypatch.setattr(port_pipeline, "viterbi_batch_multi", spy)
+    return seen
+
+
+@pytest.mark.parametrize("port_device", ["cpu", "host"])
+def test_targeted_preset_matches_trgt_tpu_host(low_quality, port_device,
+                                               viterbi_queries):
+    extra = ["--preset", "targeted"]
+    want = genotype(trgt_tpu_main, low_quality, "ref_targeted",
+                    extra + ["--device", "host"])
+    got = genotype(port_main, low_quality, f"port_targeted_{port_device}",
+                   extra + ["--device", port_device])
+    n_loci = len(want[0]) - 1
+    assert n_loci > 1 and len(want[1]) > 0
+    assert got == want
+    if port_device == "cpu":
+        # the impure-read filter went through the port's Viterbi: more
+        # queries than the annotate stage's two alleles per locus
+        assert sum(viterbi_queries) > 2 * n_loci
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,preset", [("adversarial", "wgs"),
+                                         ("low_quality", "targeted")])
+def test_cuda_matches_port_host(request, data, preset):
+    # wgs drops reads under rq 0.98, so it gets the unmodified reads
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trgt_tpu_torch.kernels import semiglobal, viterbi
+    dataset = request.getfixturevalue(data)
+    flank0, viterbi0 = semiglobal.launches, viterbi.launches
+    extra = ["--preset", preset]
+    got = genotype(port_main, dataset, f"port_{preset}_cuda",
+                   extra + ["--device", "cuda"])
+    assert semiglobal.launches > flank0 and viterbi.launches > viterbi0
+    want = genotype(port_main, dataset, f"port_{preset}_host",
+                    extra + ["--device", "host"])
+    assert len(want[0]) > 1 and len(want[1]) > 0
+    assert got == want
+
+
+@pytest.mark.parametrize("port_device", ["cpu", "host"])
+@pytest.mark.parametrize("data,genotyper", [("synthetic", "size"),
+                                            ("adversarial", "size"),
+                                            ("adversarial", "cluster")])
+def test_port_matches_trgt_tpu_host(request, data, genotyper, port_device):
+    dataset = request.getfixturevalue(data)
+    extra = ["--genotyper", genotyper]
+    want = genotype(trgt_tpu_main, dataset, f"ref_{genotyper}",
+                    extra + ["--device", "host"])
+    got = genotype(port_main, dataset, f"port_{genotyper}_{port_device}",
+                   extra + ["--device", port_device])
+    assert len(want[0]) > 1 and len(want[1]) > 0
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+
+
+def test_threads_and_batches_keep_records(synthetic):
+    want = genotype(port_main, synthetic, "port_t1", ["--device", "cpu"])
+    got = genotype(port_main, synthetic, "port_t3",
+                   ["--device", "cpu", "-t", "3", "--batch-size", "2"])
+    assert got == want
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_mod.resolve_device("cuda")
+
+
+def test_cuda_run_without_a_card_fails(monkeypatch, synthetic):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    td, fasta, bed, bam = synthetic
+    prefix = os.path.join(td, "port_nocard")
+    rc = port_main(["genotype", "--genome", fasta, "--repeats", bed,
+                    "--reads", bam, "--output-prefix", prefix])
+    assert rc == 1
+    assert not os.path.exists(prefix + ".vcf.gz")
+
+
+def test_device_modes():
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    assert device_mod.resolve_device("host") is None
+    with pytest.raises(ValueError):
+        device_mod.resolve_device("tpu")
