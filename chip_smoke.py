@@ -10,17 +10,30 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   on fuzzed problems (pattern 250, texts 30..16384)
   4. viterbi      kernel == plain version, exactly, on multi-motif
                   topologies mixed in each batch, queries up to 10 kb
-  5. end to end   `genotype` of the 96-locus heterogeneous bench catalog
-                  (trgt_tpu.utils.synth.cached_hetero_dataset) with
-                  --device cuda and --device host: identical VCF and
-                  spanning-BAM records, both kernels launched; then both
-                  kernels are replayed against their plain versions on
-                  the inputs the cuda run gave them (Viterbi up to
-                  REPLAY_MAX_L)
-The second-to-last line is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+  5. editdist     kernel == plain version, exactly, on seeded pairs of
+                  0..100 bases a side and some 1 x 10000
+  6. e2e          kernel == plain version, exactly (score, direction
+                  bits, CIGAR runs), on pairs of 1..1000 bases under the
+                  scorings (2,5,1) and (1,0,1); CIGARs equal to the host
+                  aligner's
+  7. wgs path     `genotype` of the 96-locus heterogeneous bench catalog
+                  (utils.synth.cached_hetero_dataset) with --device cuda
+                  and --device host: identical VCF and spanning-BAM
+                  records; flank, Viterbi and e2e kernels launched; then
+                  each of them is replayed against its plain version on
+                  the inputs the cuda run gave it
+  8. targeted     the same catalog with every second read's rq rewritten
+     path         to 0.85, `--preset targeted`, cuda vs host: identical
+                  records, all four kernels launched; then the same
+                  replay of this run's inputs
+Both replays take every call of the path, but the Viterbi calls only up
+to a padded query length of REPLAY_MAX_L. The second-to-last line is
+{"kernels": [...]}: one entry per kernel with the targeted path's numbers
+and, under "wgs_path", the same numbers of the wgs path. The last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -34,10 +47,16 @@ DATA_ROOT = os.path.join(REPO, "build", "trgt_tpu_torch", "data")
 N_LOCI = 96
 SEED = 42
 DEVICE = "cuda"
-# the main path's Viterbi calls are replayed against the plain version up
-# to this padded query length (the plain version walks positions in
-# Python; phase 4 covers 10 kb queries)
+# a path's Viterbi calls are replayed against the plain version up to this
+# padded query length (the plain version walks positions in Python; phase
+# 4 covers 10 kb queries)
 REPLAY_MAX_L = 4096
+
+# roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
+# non-tensor-core fp32 rate, which also stands in for the int32 rate of
+# the three integer kernels
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 
 def phase(name):
@@ -65,23 +84,133 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def compare(kernel, plain, calls):
-    """Run the kernel (once to warm, once timed) and the plain version
-    (once, timed) on every argument tuple in calls; returns (max_abs_err,
-    kernel ms, plain ms), the times summed over the calls."""
-    timed(lambda: [kernel(*a) for a in calls])
-    got, ms = timed(lambda: [kernel(*a) for a in calls])
-    want, plain_ms = timed(lambda: [plain(*a) for a in calls])
-    err = max((max_abs_err(g, w) for g, w in zip(got, want)), default=0)
-    return err, ms, plain_ms
-
-
 def max_abs_err(a, b) -> int:
+    if isinstance(a, (tuple, list)):
+        if len(a) != len(b):
+            raise AssertionError(f"{len(a)} outputs != {len(b)}")
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
     return int((a.long() - b.long()).abs().max())
+
+
+def compare(kernel, plain, calls):
+    """Call by call: run the kernel (once to warm, once timed) and the
+    plain version (once, timed) on the argument tuple and compare them;
+    returns (max_abs_err, kernel ms, plain ms), the times summed over
+    the calls. Results are dropped call by call to bound device memory."""
+    err, ms, plain_ms = 0, 0.0, 0.0
+    for args in calls:
+        kernel(*args)
+        got, t = timed(lambda: kernel(*args))
+        ms += t
+        want, t = timed(lambda: plain(*args))
+        plain_ms += t
+        err = max(err, max_abs_err(got, want))
+    return err, ms, plain_ms
+
+
+def tensor_bytes(x) -> int:
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(tensor_bytes(v) for v in x.values())
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(v) for v in x)
+    return 0
+
+
+# operations per DP cell counted for the bound: the recurrence's own
+# adds, compares and selects, no index arithmetic
+FLANK_OPS_PER_CELL = 30      # D, diag, N, scan, I, H and four payloads
+EDIT_OPS_PER_CELL = 5        # compare, add, two mins, add
+E2E_OPS_PER_CELL = 14        # D, diag, N, scan, I, H and the bit packing
+
+
+def work_flank(args):
+    pattern, text, lens = args[:3]
+    rows = (pattern != 0).sum(dim=1).double()
+    cells = float((rows * (lens.double() + 1)).sum())
+    return cells * FLANK_OPS_PER_CELL
+
+
+def work_viterbi(args):
+    # one add and one compare per real edge of the row's HMM and position:
+    # an edge into an emitting state is relaxed once across positions, an
+    # edge into a silent state once in its level
+    from trgt_tpu_torch.kernels.viterbi_tables import NO_RANK
+    _tokens, tables, lens, _ends, _num_levels = args
+    edges = (tables["R"] < NO_RANK).sum(dim=(1, 2)).double()       # (U,)
+    return float((lens.double() * edges[tables["u_map"].long()]).sum()) * 2.0
+
+
+def work_editdist(args):
+    a, b, len_a, len_b = args
+    return float((len_a.double() * len_b.double()).sum()) * EDIT_OPS_PER_CELL
+
+
+def work_e2e(args):
+    len_p, len_t = args[2], args[3]
+    cells = float(((len_p.double() + 1) * (len_t.double() + 1)).sum())
+    return cells * E2E_OPS_PER_CELL
+
+
+def bytes_e2e(args, out) -> int:
+    # what the function must move: both sequences at their true lengths
+    # and the two lengths in; the score, the run count and the CIGAR runs
+    # out. The direction bits are the kernel's working state between scan
+    # and traceback and the padding is the wrapper's, so neither counts.
+    len_p, len_t = args[2], args[3]
+    n_runs = out[3]
+    return int(len_p.sum() + len_t.sum()) + 8 * len_p.numel() + \
+        8 * n_runs.numel() + 4 * int(n_runs.sum())
+
+
+def bound_ms(kernel, work, calls, io_bytes=None):
+    """The least time the card could take for these calls: the larger of
+    bytes (every input read once, every output written once: the tensors
+    as the function takes and returns them, or `io_bytes(args, out)`) over
+    the HBM rate and operations over the fp32/int32 rate."""
+    n_bytes, n_ops = 0, 0.0
+    for args in calls:
+        out = kernel(*args)
+        n_bytes += (io_bytes(args, out) if io_bytes
+                    else tensor_bytes(args) + tensor_bytes(out))
+        n_ops += work(args)
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", n_bytes, n_ops)
+
+
+def kernel_table():
+    from trgt_tpu_torch.kernels import e2e, editdist
+    from trgt_tpu_torch.kernels import semiglobal as sg
+    from trgt_tpu_torch.kernels import viterbi as vt
+    return {
+        "flank": dict(module=sg, fn="flank_align", plain=sg.flank_align_plain,
+                      work=work_flank,
+                      source="trgt_tpu_torch/csrc/flank.cu",
+                      replaces="trgt_tpu/kernels/semiglobal_pallas.py:79",
+                      also_replaces="trgt_tpu/kernels/"
+                                    "semiglobal_pallas.py:220"),
+        "viterbi": dict(module=vt, fn="viterbi_segs", plain=vt.viterbi_plain,
+                        work=work_viterbi,
+                        source="trgt_tpu_torch/csrc/viterbi.cu",
+                        replaces="trgt_tpu/kernels/viterbi.py:217"),
+        "editdist": dict(module=editdist, fn="edit_distances",
+                         plain=editdist.edit_distances_plain,
+                         work=work_editdist,
+                         source="trgt_tpu_torch/csrc/editdist.cu",
+                         replaces="trgt_tpu/kernels/editdist_pallas.py:41"),
+        "e2e": dict(module=e2e, fn="e2e_scan", plain=e2e.e2e_scan_plain,
+                    work=work_e2e, io_bytes=bytes_e2e,
+                    source="trgt_tpu_torch/csrc/e2e.cu",
+                    replaces="trgt_tpu/kernels/e2e_device.py:40"),
+    }
 
 
 def phase_env():
@@ -98,7 +227,7 @@ def phase_env():
     import importlib.util
     triton = importlib.util.find_spec("triton") is not None
     print(f"triton installed: {triton}")
-    from trgt_tpu.io import native
+    from trgt_tpu_torch.io import native
     print(f"native host codec loaded: {native.get_lib() is not None}")
 
 
@@ -132,10 +261,25 @@ def mutate(rng, seq, rate):
     return bytes(out)
 
 
+def edit_few(rng, seq, n_edits):
+    """seq with n_edits single-base substitutions, insertions, deletions."""
+    b = bytearray(seq)
+    for _ in range(n_edits):
+        op = rng.random()
+        pos = rng.randrange(max(1, len(b)))
+        if op < 0.5:
+            b[pos:pos + 1] = bytes([rng.choice(b"ACGT")])
+        elif op < 0.75:
+            b[pos:pos] = bytes([rng.choice(b"ACGT")])
+        else:
+            del b[pos:pos + 1]
+    return bytes(b)
+
+
 def phase_flank(n_problems: int = 2000, seed: int = 7):
     import torch
-    from trgt_tpu.kernels.bucket import bucket
     from trgt_tpu_torch.kernels import semiglobal as sg
+    from trgt_tpu_torch.kernels.bucket import bucket
     phase(f"flank: kernel vs plain, {n_problems} fuzzed problems")
     rng = random.Random(seed)
     dev = torch.device(DEVICE)
@@ -170,9 +314,9 @@ def phase_flank(n_problems: int = 2000, seed: int = 7):
 
 def phase_viterbi(seed: int = 11):
     import torch
-    from trgt_tpu.hmm import build_hmm
-    from trgt_tpu.kernels.bucket import bucket
+    from trgt_tpu_torch.hmm import build_hmm
     from trgt_tpu_torch.kernels import viterbi as vt
+    from trgt_tpu_torch.kernels.bucket import bucket
     rng = random.Random(seed)
     motif_sets = [[b"CAG"], [b"CAG", b"A"], [b"AAG", b"CAAC"],
                   [b"AATGG", b"CCATTTTAGG"], [b"T", b"GATA", b"CCATAGG"]]
@@ -202,6 +346,102 @@ def phase_viterbi(seed: int = 11):
                              "version")
 
 
+def phase_editdist(n_pairs: int = 4000, seed: int = 13):
+    import torch
+    from trgt_tpu_torch.kernels import editdist as ed
+    from trgt_tpu_torch.kernels.align_host import edit_distance
+    from trgt_tpu_torch.kernels.bucket import bucket
+    phase(f"editdist: kernel vs plain, {n_pairs} fuzzed pairs")
+    rng = random.Random(seed)
+    dev = torch.device(DEVICE)
+    pairs = []
+    for i in range(n_pairs):
+        if i % 100 == 0:
+            a, b = random_dna(rng, 1), random_dna(rng, 10000)   # 1 x 10000
+        elif i % 3 == 0:
+            a = random_dna(rng, rng.randint(0, 100))
+            b = random_dna(rng, rng.randint(0, 100))
+        else:
+            # near-identical: a repeat tract with a few edits
+            motif = random_dna(rng, rng.randint(1, 6))
+            a = (motif * 100)[:rng.randint(0, 100)]
+            b = edit_few(rng, a, rng.randint(0, 4))[:100]
+        if len(a) > len(b):
+            a, b = b, a
+        pairs.append((a, b))
+    by_width = {}
+    for a, b in pairs:
+        by_width.setdefault(bucket(len(b), minimum=128), []).append((a, b))
+    calls = [[torch.from_numpy(x).to(dev)
+              for x in ed.encode_pairs(items, width)]
+             for width, items in sorted(by_width.items())]
+    err, ms, plain_ms = compare(ed.edit_distances, ed.edit_distances_plain,
+                                calls)
+    print(f"editdist fuzz: {n_pairs} pairs in {len(calls)} widths, "
+          f"max_abs_err {err} (tolerance 0: exact), kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms")
+    if err != 0:
+        raise AssertionError("edit-distance kernel disagrees with its "
+                             "plain version")
+    got = ed.edit_distances_batch(pairs[:600], dev)
+    want = [edit_distance(a, b) for a, b in pairs[:600]]
+    if got != want:
+        raise AssertionError("edit_distances_batch disagrees with the host "
+                             "twin align_host.edit_distance")
+    print("editdist: edit_distances_batch == align_host.edit_distance on "
+          "600 of the pairs")
+
+
+def phase_e2e_fuzz(n_pairs: int = 240, seed: int = 17):
+    import torch
+    from trgt_tpu_torch.kernels import e2e
+    from trgt_tpu_torch.kernels.align_host import align_end_to_end
+    from trgt_tpu_torch.kernels.bucket import bucket
+    phase(f"e2e: kernel vs plain and host aligner, {n_pairs} fuzzed pairs, "
+          f"two scorings")
+    rng = random.Random(seed)
+    dev = torch.device(DEVICE)
+    pairs = []
+    for i in range(n_pairs):
+        n = int(1000 ** rng.random())                 # 1..1000, log-uniform
+        if i % 2 == 0:
+            if i % 4 == 0:                            # a repeat tract: ties
+                motif = random_dna(rng, rng.randint(1, 6))
+                a = (motif * n)[:n]
+            else:
+                a = random_dna(rng, n)
+            b = edit_few(rng, a, rng.randint(0, 4)) or a
+            pairs.append((a, b))
+        else:
+            pairs.append((random_dna(rng, n),
+                          random_dna(rng, int(1000 ** rng.random()))))
+    by_key = {}
+    for p, t in pairs:
+        by_key.setdefault((bucket(len(p)), bucket(len(t))),
+                          []).append((p, t))
+    for mism, gapo, gape in ((2, 5, 1), (1, 0, 1)):
+        calls = [[torch.from_numpy(x).to(dev)
+                  for x in e2e.encode_problems(items)] + [mism, gapo, gape]
+                 for _key, items in sorted(by_key.items())]
+        err, ms, plain_ms = compare(e2e.e2e_scan, e2e.e2e_scan_plain, calls)
+        print(f"e2e fuzz ({mism},{gapo},{gape}): {n_pairs} pairs in "
+              f"{len(calls)} length groups, score/bits/runs max_abs_err "
+              f"{err} (tolerance 0: exact), kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms")
+        if err != 0:
+            raise AssertionError("e2e kernel disagrees with its plain "
+                                 "version")
+        got = e2e.e2e_align_batch(pairs, mism, gapo, gape, dev)
+        want = [align_end_to_end(p, t, mism, gapo, gape) for p, t in pairs]
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want))
+                       if g != w)
+            raise AssertionError(f"e2e CIGAR differs from the host aligner "
+                                 f"on pair {bad}: {pairs[bad]}")
+        print(f"e2e fuzz ({mism},{gapo},{gape}): scores and CIGARs == "
+              f"align_host.align_end_to_end on all {n_pairs} pairs")
+
+
 class Capture:
     """Keeps the arguments of every call to `module.name` (the kernels'
     device dispatch) while active, so the comparison phase can replay
@@ -226,7 +466,7 @@ class Capture:
 
 def records(prefix: str):
     """(VCF body without ## lines, spanning-BAM records without header)."""
-    from trgt_tpu.io.bgzf import BgzfReader
+    from trgt_tpu_torch.io.bgzf import BgzfReader
     vcf = "\n".join(line for line in BgzfReader(prefix + ".vcf.gz")
                     .read_all().decode().splitlines()
                     if not line.startswith("##"))
@@ -242,88 +482,148 @@ def records(prefix: str):
     return vcf, data[off:]
 
 
-def run_genotype(dsdir: str, device: str):
-    from trgt_tpu.engine import pipeline
+def run_genotype(dsdir: str, reads: str, device: str, preset: str):
     from trgt_tpu_torch.cli import main
-    prefix = os.path.join(dsdir, f"smoke_{device}")
+    from trgt_tpu_torch.engine import pipeline
+    from trgt_tpu_torch.kernels import e2e
+    prefix = os.path.join(dsdir, f"smoke_{preset}_{device}")
     pipeline.STAGE_TIMES.clear()
+    e2e.routed.clear()
     t0 = time.perf_counter()
     rc = main(["genotype", "--genome", os.path.join(dsdir, "ref.fasta"),
                "--repeats", os.path.join(dsdir, "repeats.bed"),
-               "--reads", os.path.join(dsdir, "reads.bam"),
+               "--reads", os.path.join(dsdir, reads), "--preset", preset,
                "--output-prefix", prefix, "--device", device])
     if device == "cuda":
         import torch
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     if rc != 0:
-        raise RuntimeError(f"genotype --device {device} exited {rc}")
+        raise RuntimeError(f"genotype --preset {preset} --device {device} "
+                           f"exited {rc}")
     stages = {k: round(v, 3) for k, v in pipeline.STAGE_TIMES.items()}
-    print(f"genotype --device {device}: {N_LOCI} loci in {elapsed:.3f} s = "
-          f"{N_LOCI / elapsed:.3f} loci/s; stages (s) {json.dumps(stages)}",
-          flush=True)
+    print(f"genotype --preset {preset} --device {device}: {N_LOCI} loci in "
+          f"{elapsed:.3f} s = {N_LOCI / elapsed:.3f} loci/s; stages (s) "
+          f"{json.dumps(stages)}", flush=True)
+    if device == "cuda":
+        print(f"consensus alignments routed in this run (host_seconds: "
+              f"wall time of the host-routed ones, on a thread pool): "
+              f"{json.dumps(dict(e2e.routed))}")
     return prefix
 
 
-def phase_e2e():
-    import torch
-    from trgt_tpu.utils.synth import cached_hetero_dataset
-    from trgt_tpu_torch.kernels import semiglobal as sg
-    from trgt_tpu_torch.kernels import viterbi as vt
-    phase(f"end to end: bench{N_LOCI} catalog, --device cuda vs host")
+def drive_path(dsdir, reads, preset, expect):
+    """Genotype with --device cuda (kernel inputs captured, launch counts
+    set to 0 just before and read just after) and --device host; the two
+    must write identical records and every kernel in `expect` must have
+    been launched. Returns (launches, captures)."""
+    table = kernel_table()
+    caps = {name: Capture(k["module"], k["fn"]) for name, k in table.items()}
+    with contextlib.ExitStack() as stack:
+        for cap in caps.values():
+            stack.enter_context(cap)
+        for k in table.values():
+            k["module"].launches = 0
+        cuda_prefix = run_genotype(dsdir, reads, DEVICE, preset)
+        launches = {name: k["module"].launches for name, k in table.items()}
+    print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}")
+    host_prefix = run_genotype(dsdir, reads, "host", preset)
+    cuda_vcf, cuda_bam = records(cuda_prefix)
+    host_vcf, host_bam = records(host_prefix)
+    n_rec = sum(1 for line in cuda_vcf.splitlines()
+                if not line.startswith("#"))
+    print(f"{preset} records: {n_rec} VCF, {len(cuda_bam)} spanning-BAM "
+          f"bytes; VCF equal {cuda_vcf == host_vcf}, BAM equal "
+          f"{cuda_bam == host_bam}")
+    if n_rec != N_LOCI or cuda_vcf != host_vcf or cuda_bam != host_bam:
+        raise AssertionError(f"cuda and host genotype outputs differ "
+                             f"({preset})")
+    for name in expect:
+        if launches[name] <= 0:
+            raise AssertionError(f"the {name} kernel was never launched on "
+                                 f"the {preset} path")
+    return launches, caps
+
+
+def low_quality_reads(dsdir: str) -> str:
+    """reads.bam with every second read's rq rewritten to 0.85 (under 0.9,
+    so the targeted preset's impure-read filter labels it)."""
+    from trgt_tpu_torch.io.bam import BamReader
+    from trgt_tpu_torch.io.bam_write import BamWriter
+    name = "reads_low_rq.bam"
+    src = BamReader(os.path.join(dsdir, "reads.bam"))
+    w = BamWriter(os.path.join(dsdir, name), src.header.text,
+                  src.header.references, build_index=True)
+    for i, rec in enumerate(src):
+        w.write_record(rec.qname, rec.flag, rec.ref_id, rec.pos, rec.mapq,
+                       rec.cigar, rec.seq, rec.qual,
+                       [("rq", "f", 0.85 if i % 2 else 0.999)])
+    w.close()
+    return name
+
+
+def replay(path, table, caps):
+    """Every kernel launched on `path` against its plain version on the
+    inputs the cuda run gave it; {kernel name: numbers of this replay}."""
+    phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
+    out = {}
+    for name, k in table.items():
+        all_calls = caps[name].calls
+        if not all_calls:
+            continue
+        calls = all_calls
+        if name == "viterbi":
+            calls = [a for a in calls if a[0].shape[1] <= REPLAY_MAX_L]
+        kernel = getattr(k["module"], k["fn"])
+        t0 = time.perf_counter()
+        err, ms, plain_ms = compare(kernel, k["plain"], calls)
+        bound, bound_by, n_bytes, n_ops = bound_ms(kernel, k["work"], calls,
+                                                   k.get("io_bytes"))
+        print(f"{name}: replayed {len(calls)} of {len(all_calls)} "
+              f"{path}-path calls in {time.perf_counter() - t0:.1f} s, "
+              f"max_abs_err {err} (tolerance 0), kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.6f} ms by {bound_by} "
+              f"({n_bytes} bytes, {n_ops:.0f} operations; totals over the "
+              f"replayed calls)", flush=True)
+        if err != 0:
+            raise AssertionError(f"{name} kernel disagrees with its plain "
+                                 f"version on the {path} path's inputs")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": None, "replayed_calls": len(calls)}
+    return out
+
+
+def phase_paths():
+    from trgt_tpu_torch.utils.synth import cached_hetero_dataset
+    phase(f"wgs path: bench{N_LOCI} catalog, --device cuda vs host")
     t0 = time.perf_counter()
     dsdir = cached_hetero_dataset(N_LOCI, seed=SEED, tag=f"bench{N_LOCI}",
                                   root=DATA_ROOT)
     print(f"dataset {os.path.relpath(dsdir, REPO)} ready in "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"card: {gpu_name_power()}")
-    with Capture(sg, "flank_align") as fcap, \
-            Capture(vt, "viterbi_segs") as vcap:
-        sg.launches = 0
-        vt.launches = 0
-        cuda_prefix = run_genotype(dsdir, DEVICE)
-        launches = {"flank": sg.launches, "viterbi": vt.launches}
-    print(f"kernel launches in the cuda run: {json.dumps(launches)}")
-    host_prefix = run_genotype(dsdir, "host")
-    cuda_vcf, cuda_bam = records(cuda_prefix)
-    host_vcf, host_bam = records(host_prefix)
-    n_rec = sum(1 for line in cuda_vcf.splitlines()
-                if not line.startswith("#"))
-    print(f"records: {n_rec} VCF, {len(cuda_bam)} spanning-BAM bytes; "
-          f"VCF equal {cuda_vcf == host_vcf}, BAM equal "
-          f"{cuda_bam == host_bam}")
-    if n_rec != N_LOCI or cuda_vcf != host_vcf or cuda_bam != host_bam:
-        raise AssertionError("cuda and host genotype outputs differ")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the {name} kernel was never launched on "
-                                 f"the main path")
+    table = kernel_table()
+    wgs_launches, caps = drive_path(dsdir, "reads.bam", "wgs",
+                                    ("flank", "viterbi", "e2e"))
+    wgs = replay("wgs", table, caps)
+    del caps
+
+    phase(f"targeted path: bench{N_LOCI} catalog, every second read rq "
+          f"0.85, --preset targeted, --device cuda vs host")
+    reads = low_quality_reads(dsdir)
+    launches, caps = drive_path(dsdir, reads, "targeted", tuple(table))
+    targeted = replay("targeted", table, caps)
 
     kernels = []
-    for name, cap, kernel, plain, source, replaces in (
-            ("flank", fcap, sg.flank_align, sg.flank_align_plain,
-             "trgt_tpu_torch/csrc/flank.cu",
-             "trgt_tpu/kernels/semiglobal_pallas.py:79"),
-            ("viterbi", vcap, vt.viterbi_segs, vt.viterbi_plain,
-             "trgt_tpu_torch/csrc/viterbi.cu",
-             "trgt_tpu/kernels/viterbi.py:217")):
-        calls = cap.calls
-        if name == "viterbi":
-            calls = [a for a in calls if a[0].shape[1] <= REPLAY_MAX_L]
-        err, ms, plain_ms = compare(kernel, plain, calls)
-        print(f"{name}: replayed {len(calls)} of {len(cap.calls)} "
-              f"main-path calls, max_abs_err {err} (tolerance 0), kernel "
-              f"{ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms (total over the replayed calls)")
-        if err != 0:
-            raise AssertionError(f"{name} kernel disagrees with its plain "
-                                 f"version on the main path's inputs")
-        entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": launches[name],
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        if name == "flank":
-            entry["also_replaces"] = \
-                "trgt_tpu/kernels/semiglobal_pallas.py:220"
+    for name, k in table.items():
+        entry = {"name": name, "route": "cuda", "source": k["source"],
+                 "replaces": k["replaces"], "launches": launches[name],
+                 **targeted[name]}
+        if "also_replaces" in k:
+            entry["also_replaces"] = k["also_replaces"]
+        if name in wgs:
+            entry["wgs_path"] = {"launches": wgs_launches[name], **wgs[name]}
         kernels.append(entry)
     return kernels
 
@@ -335,11 +635,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    t_start = time.perf_counter()
     phase_env()
-    phase_build()
-    phase_flank()
-    phase_viterbi()
-    kernels = phase_e2e()
+    for fn in (phase_build, phase_flank, phase_viterbi, phase_editdist,
+               phase_e2e_fuzz):
+        t0 = time.perf_counter()
+        fn()
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+    kernels = phase_paths()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(gpu_name_power())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """End-to-end parity of the port: `trgt_tpu_torch genotype` with
 `--device cpu` (the kernels' plain PyTorch versions) and `--device host`
 (the host twins) must write the same VCF records and spanning-BAM records
-as `trgt_tpu genotype --device host` on the same synthetic data."""
+as `trgt_tpu genotype --device host` on the same synthetic data, for the
+size and cluster genotypers and the targeted preset."""
 
 import os
 import struct
@@ -84,6 +85,45 @@ def low_quality(adversarial):
     return td, fasta, bed, out
 
 
+@pytest.fixture(scope="module")
+def half_low_quality(adversarial):
+    """The adversarial reads with every second read's quality at 0.85:
+    the filter labels half of the spanning reads, and the cluster
+    genotyper sees reads of both kinds."""
+    td, fasta, bed, bam = adversarial
+    src = BamReader(bam)
+    out = os.path.join(td, "half_low_rq.bam")
+    w = BamWriter(out, src.header.text, src.header.references,
+                  build_index=True)
+    for i, rec in enumerate(src):
+        w.write_record(rec.qname, rec.flag, rec.ref_id, rec.pos, rec.mapq,
+                       rec.cigar, rec.seq, rec.qual,
+                       [("rq", "f", 0.85 if i % 2 else 0.999)])
+    w.close()
+    return td, fasta, bed, out
+
+
+@pytest.fixture
+def genotype_stage_calls(monkeypatch):
+    """Counts the pairs and problems the port's pipeline sends to its
+    edit-distance and end-to-end alignment modules."""
+    seen = {"editdist": 0, "e2e": 0}
+    orig_ed = port_pipeline.edit_distances_batch
+    orig_e2e = port_pipeline.e2e_align_batch
+
+    def spy_ed(pairs, device):
+        seen["editdist"] += len(pairs)
+        return orig_ed(pairs, device)
+
+    def spy_e2e(problems, mism, gapo, gape, device):
+        seen["e2e"] += len(problems)
+        return orig_e2e(problems, mism, gapo, gape, device)
+
+    monkeypatch.setattr(port_pipeline, "edit_distances_batch", spy_ed)
+    monkeypatch.setattr(port_pipeline, "e2e_align_batch", spy_e2e)
+    return seen
+
+
 @pytest.fixture
 def viterbi_queries(monkeypatch):
     """Counts the queries the port's pipeline sends to its Viterbi."""
@@ -115,21 +155,44 @@ def test_targeted_preset_matches_trgt_tpu_host(low_quality, port_device,
         assert sum(viterbi_queries) > 2 * n_loci
 
 
+@pytest.mark.parametrize("port_device", ["cpu", "host"])
+def test_targeted_preset_half_low_quality_matches_trgt_tpu_host(
+        half_low_quality, port_device, genotype_stage_calls):
+    extra = ["--preset", "targeted"]
+    want = genotype(trgt_tpu_main, half_low_quality, "ref_half",
+                    extra + ["--device", "host"])
+    got = genotype(port_main, half_low_quality, f"port_half_{port_device}",
+                   extra + ["--device", port_device])
+    assert len(want[0]) > 2 and len(want[1]) > 0
+    assert got == want
+    if port_device == "cpu":
+        # the cluster distances and the consensus alignments went through
+        # the port's editdist and e2e modules (their plain versions)
+        assert genotype_stage_calls["editdist"] > 0
+        assert genotype_stage_calls["e2e"] > 0
+    else:
+        assert genotype_stage_calls == {"editdist": 0, "e2e": 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("data,preset", [("adversarial", "wgs"),
-                                         ("low_quality", "targeted")])
+                                         ("low_quality", "targeted"),
+                                         ("half_low_quality", "targeted")])
 def test_cuda_matches_port_host(request, data, preset):
     # wgs drops reads under rq 0.98, so it gets the unmodified reads
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from trgt_tpu_torch.kernels import semiglobal, viterbi
+    from trgt_tpu_torch.kernels import e2e, editdist, semiglobal, viterbi
     dataset = request.getfixturevalue(data)
-    flank0, viterbi0 = semiglobal.launches, viterbi.launches
+    modules = [semiglobal, viterbi, e2e]
+    if preset == "targeted":
+        modules.append(editdist)       # the cluster genotyper's distances
+    before = [m.launches for m in modules]
     extra = ["--preset", preset]
-    got = genotype(port_main, dataset, f"port_{preset}_cuda",
+    got = genotype(port_main, dataset, f"port_{data}_cuda",
                    extra + ["--device", "cuda"])
-    assert semiglobal.launches > flank0 and viterbi.launches > viterbi0
-    want = genotype(port_main, dataset, f"port_{preset}_host",
+    assert all(m.launches > n for m, n in zip(modules, before))
+    want = genotype(port_main, dataset, f"port_{data}_host",
                     extra + ["--device", "host"])
     assert len(want[0]) > 1 and len(want[1]) > 0
     assert got == want

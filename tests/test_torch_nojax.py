@@ -1,5 +1,6 @@
-"""The port never imports JAX. tests/conftest.py imports JAX into every
-test process, so the run is checked in a subprocess."""
+"""The port never imports JAX nor anything of the JAX package `trgt_tpu`.
+tests/conftest.py imports JAX into every test process, so the run is
+checked in a subprocess."""
 
 import ast
 import os
@@ -12,28 +13,40 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
 import sys
-from trgt_tpu.utils.synth import SynthLocus, make_dataset
+from trgt_tpu_torch.utils.synth import SynthLocus, make_dataset
 from trgt_tpu_torch.cli import main
 td = sys.argv[1]
 fasta, bed, bam = make_dataset(td, [SynthLocus("HET", "CAG", 10, (10, 20)),
                                     SynthLocus("ATX", "AT", 12, (12, 15))],
                                depth=12)
 rc = main(["genotype", "--genome", fasta, "--repeats", bed, "--reads", bam,
-           "--output-prefix", td + "/out", "--device", sys.argv[2]])
-print("rc", rc, "jax", "jax" in sys.modules)
+           "--output-prefix", td + "/out", "--device", sys.argv[2],
+           *sys.argv[3:]])
+foreign = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "trgt_tpu"))
+print("rc", rc, "foreign", foreign)
 """
+
+
+def _run_child(tmp_path, device, *extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
+                           device, *extra], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines()[-1] == "rc 0 foreign []"
+    assert (tmp_path / "out.vcf.gz").exists()
 
 
 @pytest.mark.parametrize("device", ["cpu", "host"])
 def test_genotype_run_imports_no_jax(tmp_path, device):
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
-                           device], cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-4:] == ["rc", "0", "jax", "False"]
-    assert (tmp_path / "out.vcf.gz").exists()
+    _run_child(tmp_path, device)
+
+
+@pytest.mark.parametrize("device", ["cpu", "host"])
+def test_targeted_run_imports_no_jax_and_no_trgt_tpu(tmp_path, device):
+    _run_child(tmp_path, device, "--preset", "targeted")
 
 
 def _imported_modules(path):
@@ -55,14 +68,12 @@ def _port_sources():
 
 
 def test_no_source_imports_jax():
-    jax_only = {"trgt_tpu.kernels.semiglobal", "trgt_tpu.kernels.viterbi",
-                "trgt_tpu.kernels.semiglobal_pallas",
-                "trgt_tpu.kernels.editdist",
-                "trgt_tpu.kernels.editdist_pallas",
-                "trgt_tpu.kernels.e2e_device", "trgt_tpu.mesh",
-                "trgt_tpu.jax_setup", "trgt_tpu.engine.sharding",
-                "trgt_tpu.engine.worker"}
+    """No module of trgt_tpu_torch/**.py nor chip_smoke.py imports `jax`,
+    `trgt_tpu` or `trgt_tpu.*`, not even lazily inside a function."""
+    n_files = 0
     for path in _port_sources():
+        n_files += 1
         for mod in _imported_modules(path):
-            assert mod.split(".")[0] != "jax", (path, mod)
-            assert mod not in jax_only, (path, mod)
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "trgt_tpu"), \
+                (path, mod)
+    assert n_files > 40

@@ -1,17 +1,28 @@
-"""Command line of the PyTorch/CUDA port: `genotype` with the flags of
-`trgt_tpu/cli.py` (ref: src/cli.rs GenotypeArgs) and `--device
-cuda|cpu|host`. Presets come from `trgt_tpu.cli.apply_genotype_preset`,
-so both packages resolve the same defaults."""
+"""Command line of the PyTorch/CUDA port: `genotype` with the flags,
+presets and defaults of `trgt_tpu/cli.py` (ref: src/cli.rs GenotypeArgs)
+and `--device cuda|cpu|host`."""
 
 import argparse
 import logging
+import os
 import time
 
-from trgt_tpu import FULL_VERSION
-from trgt_tpu.cli import (_existing_file, _unit_float,
-                          apply_genotype_preset, init_logger)
-
+from . import FULL_VERSION
 from .device import DEVICE_MODES
+
+
+def _existing_file(path: str) -> str:
+    if not os.path.exists(path):
+        raise argparse.ArgumentTypeError(f"File does not exist: {path}")
+    return path
+
+
+def _unit_float(s: str) -> float:
+    v = float(s)
+    if not 0.0 <= v <= 1.0:
+        raise argparse.ArgumentTypeError(
+            f"The value must be between 0.0 and 1.0: {s}")
+    return v
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +74,32 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--batch-size", dest="batch_size", type=int, default=None,
                    help="Loci per batch (default 256 on cuda, 64 otherwise)")
     return parser
+
+
+def apply_genotype_preset(args) -> None:
+    """Preset-conditional defaults (ref: cli.rs default_value_if at
+    265,275,287,299,326,341)."""
+    targeted = args.preset == "targeted"
+    if args.genotyper is None:
+        args.genotyper = "cluster" if targeted else "size"
+    if args.aln_scoring is None:
+        args.aln_scoring = "1,0,1" if targeted else "2,5,1"
+    if args.min_flank_id_frac is None:
+        args.min_flank_id_frac = 0.8 if targeted else 0.7
+    if args.flank_len is None:
+        args.flank_len = 200 if targeted else 250
+    if args.min_hifi_read_qual is None:
+        args.min_hifi_read_qual = -1.0 if targeted else 0.98
+    if args.max_depth is None:
+        args.max_depth = 10000 if targeted else 250
+
+
+def init_logger(verbosity: int) -> None:
+    level = [logging.WARNING, logging.INFO, logging.DEBUG][min(verbosity, 2)]
+    logging.basicConfig(
+        level=level,
+        format="[%(asctime)s %(levelname)s] %(message)s",
+        datefmt="%Y-%m-%d %H:%M:%S")
 
 
 def main(argv=None) -> int:

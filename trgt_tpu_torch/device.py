@@ -5,8 +5,9 @@
         back to the CPU.
   cpu   the kernels' plain PyTorch versions on CPU tensors (what the CPU
         tests run).
-  host  no tensors at all: the JAX package's host twins
-        (`align_ends_free_text`, `native.endsfree_banded`, `Hmm.label`).
+  host  no tensors at all: the host twins (`align_ends_free_text`,
+        `native.endsfree_banded`, `edit_distance`, `align_end_to_end`,
+        `Hmm.label`).
 """
 
 from typing import Optional

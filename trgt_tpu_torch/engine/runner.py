@@ -1,35 +1,131 @@
 """The port's `genotype` driver (counterpart of
 `trgt_tpu/engine/runner.py:289 run_genotype`).
 
-Stream loci → `TorchBatchPipeline` → VCF + spanning BAM through the JAX
-package's JAX-free readers and writers, with the same writer thread. No
-JAX and no device mesh: `--device` picks CUDA kernels, their plain
-PyTorch versions on the CPU, or the host twins (device.py). `-t N`
-threads read extraction inside the pipeline; the worker-process pool of
-the JAX package is not ported yet.
+Stream loci → `BatchPipeline` → VCF + spanning BAM through the port's
+own readers and writers, with a writer thread. No device mesh:
+`--device` picks CUDA kernels, their plain PyTorch versions on the CPU,
+or the host twins (device.py). `-t N` threads read extraction inside the
+pipeline; the worker-process pool of the JAX package is not ported yet.
 """
 
 import logging
+import os
 import queue
 import sys
 import threading
 import time
+from typing import Optional
 
-from trgt_tpu import FULL_VERSION
-from trgt_tpu.engine.pipeline import STAGE_TIMES, _STAGE_LOCK, _timed
-from trgt_tpu.engine.runner import (PROGRAM_NAME, get_sample_name,
-                                    open_alignments, write_spanning_reads)
-from trgt_tpu.engine.workflow import Params
-from trgt_tpu.io.bam_write import BamWriter
-from trgt_tpu.io.catalog import iter_loci
-from trgt_tpu.io.fasta import FastaReader
-from trgt_tpu.io.vcf_write import VcfWriter
-from trgt_tpu.utils import Genotyper, Karyotype, TrgtScoring
-
+from .. import FULL_VERSION
 from ..device import resolve_device
-from .pipeline import TorchBatchPipeline
+from ..io.bam import BamReader
+from ..io.bam_write import BamWriter, build_record, encode_bamlet_record
+from ..io.catalog import iter_loci
+from ..io.fasta import FastaReader
+from ..io.vcf_write import VcfWriter
+from ..reads import clip_bases
+from ..utils import Genotyper, Karyotype, TrgtScoring
+from .pipeline import STAGE_TIMES, _STAGE_LOCK, BatchPipeline, _timed
+from .workflow import Params
 
 log = logging.getLogger("trgt")
+PROGRAM_NAME = "trgt"
+
+
+def get_sample_name(reads_path: str, header) -> str:
+    # ref: src/utils/bam_utils.rs:22-47
+    names = header.sample_names()
+    if len(names) == 1:
+        return names[0]
+    if len(names) == 0:
+        log.warning("No sample names found")
+    else:
+        log.warning("Multiple sample names found")
+    stem = os.path.basename(reads_path)
+    for ext in (".bam", ".cram"):
+        if stem.endswith(ext):
+            stem = stem[:-len(ext)]
+    return stem
+
+
+def iter_spanning_records(tid_of, locus, results, flank_len: int):
+    """Yield (length-prefixed record bytes, ref_id, pos, ref_end) for
+    each spanning read of a locus (ref: src/trgt/writers/
+    write_bam.rs:72-144)."""
+    for index in range(len(results.reads)):
+        read = results.reads[index]
+        classification = results.classification[index]
+        span = results.tr_spans[index]
+        if span[0] < flank_len or len(read.bases) < span[1] + flank_len:
+            log.error("Read %s has unexpectedly short flanks", read.id)
+            continue
+        left_clip = span[0] - flank_len
+        right_clip = len(read.bases) - span[1] - flank_len
+        clipped = clip_bases(read, left_clip, right_clip)
+        if clipped is None:
+            log.error("Read %s has unexpectedly short flanks", read.id)
+            continue
+        read = clipped
+        contig_id = tid_of(locus.region.contig)
+
+        flag = 0x10 if read.is_reverse else 0
+        if read.cigar is not None:
+            pos = read.cigar.ref_pos
+            cigar = read.cigar.ops
+            mapq = read.mapq
+        else:
+            pos = locus.region.start
+            cigar = None
+            flag |= 0x4
+            mapq = 0  # htslib's zero-initialized record default
+
+        rq = read.read_qual if read.read_qual is not None else -1.0
+        rec = encode_bamlet_record(
+            read.id, flag, contig_id, pos, mapq, cigar, read.bases,
+            read.quals, locus.id, rq, read.meth, read.mismatch_offsets,
+            read.hp_tag, read.start_offset, read.end_offset,
+            classification, flank_len)
+        if rec is not None:
+            ref_span = sum(length for length, op in (cigar or [])
+                           if op in "MDN=X")
+            yield rec, contig_id, pos, pos + ref_span
+            continue
+        aux = [("TR", "Z", locus.id),
+               ("rq", "f", rq)]
+        if read.meth is not None:
+            aux.append(("MC", "B", ("C", read.meth)))
+        if read.mismatch_offsets is not None:
+            aux.append(("MO", "B", ("i", read.mismatch_offsets)))
+        if read.hp_tag is not None:
+            aux.append(("HP", "C", read.hp_tag))
+        aux.append(("SO", "i", read.start_offset))
+        aux.append(("EO", "i", read.end_offset))
+        aux.append(("AL", "i", classification))
+        aux.append(("FL", "B", ("I", [flank_len, flank_len])))
+
+        rec_b, ref_end = build_record(read.id, flag, contig_id, pos, mapq,
+                                      cigar, read.bases.decode(),
+                                      read.quals, aux)
+        yield rec_b, contig_id, pos, ref_end
+
+
+def write_spanning_reads(bam_writer: BamWriter, locus, results,
+                         flank_len: int) -> None:
+    for rec, rid, pos, ref_end in iter_spanning_records(
+            bam_writer.header.tid, locus, results, flank_len):
+        bam_writer.write_encoded(rec, rid, pos, ref_end)
+
+
+def open_alignments(reads_path: str, genome_path: Optional[str] = None):
+    """BAM or CRAM reader by magic sniffing (ref: rust-htslib
+    IndexedReader::from_path + set_reference, commands/genotype.rs:46)."""
+    with open(reads_path, "rb") as fh:
+        magic = fh.read(4)
+    if magic == b"CRAM":
+        from ..io.cram import CramReader   # large; only for CRAM input
+        return CramReader(reads_path, genome_path)
+    return BamReader(reads_path)
+
 
 
 def run_genotype(args) -> int:
@@ -82,7 +178,7 @@ def run_genotype(args) -> int:
         n_err += 1
 
     on_cuda = device is not None and device.type == "cuda"
-    pipeline = TorchBatchPipeline(
+    pipeline = BatchPipeline(
         params, device,
         batch_size=args.batch_size or (256 if on_cuda else 64),
         num_threads=args.num_threads,

@@ -1,2 +1,4 @@
-"""Span (flank alignment) and annotate (Viterbi) kernels of the port:
-CUDA sources in ../csrc, plain PyTorch versions beside each wrapper."""
+"""Kernels of the port: span (flank alignment), annotate (Viterbi),
+cluster distances (edit distance) and consensus repair (end-to-end
+alignment). CUDA sources in ../csrc, a plain PyTorch version beside each
+wrapper, and the numpy/native host twins (align_host, span_window)."""

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "trgt_flank_align": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     "trgt_viterbi": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "trgt_edit_distances": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
+    "trgt_e2e_scan": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _I, _I, _P],
 }
 
 

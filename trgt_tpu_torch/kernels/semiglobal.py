@@ -25,7 +25,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from trgt_tpu.kernels.bucket import bucket
+from .bucket import bucket
 
 # times the CUDA kernel was launched (chip_smoke.py resets and reads it)
 launches = 0

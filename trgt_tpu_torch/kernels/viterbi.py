@@ -23,8 +23,8 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from trgt_tpu.hmm.model import Hmm
-from trgt_tpu.kernels.bucket import bucket
+from ..hmm.model import Hmm
+from .bucket import bucket
 
 from .viterbi_tables import (NEG, NO_RANK, encode_queries, stack_tables,
                              tables_to_torch)

@@ -16,8 +16,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
-from trgt_tpu.hmm.model import Hmm
-from trgt_tpu.kernels.bucket import bucket
+from ..hmm.model import Hmm
+from .bucket import bucket
 
 NEG = -1e30
 NO_RANK = 0x7FFF
