@@ -7,9 +7,16 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   whether the native host codec (g++ -lz) loaded
   2. build        nvcc builds trgt_tpu_torch/csrc/*.cu for sm_90a
   3. flank        kernel == plain PyTorch version on the card, exactly,
-                  on fuzzed problems (pattern 250, texts 30..16384)
+                  on fuzzed problems (pattern 250, texts 30..16384) and on
+                  texts at every width where the kernel changes class,
+                  strip or tile, empty and one-byte texts, pad rows
   4. viterbi      kernel == plain version, exactly, on multi-motif
-                  topologies mixed in each batch, queries up to 10 kb
+                  topologies mixed in each batch, queries up to 10 kb;
+                  state counts on both sides of 32 and 64, one to five
+                  motifs (the run-end state's in-edges on both sides of
+                  the kernel's 4-wide tables), a motif of one base,
+                  duplicate and zero-probability edges, rows with no
+                  valid path (their garbage segments equal too)
   5. editdist     kernel == plain version, exactly, on seeded pairs of
                   0..100 bases a side and some 1 x 10000
   6. e2e          kernel == plain version, exactly (score, direction
@@ -26,8 +33,14 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      path         to 0.85, `--preset targeted`, cuda vs host: identical
                   records, all four kernels launched; then the same
                   replay of this run's inputs
-Both replays take every call of the path, but the Viterbi calls only up
-to a padded query length of REPLAY_MAX_L. The second-to-last line is
+Both replays time the kernel and reckon its bound over every call of the
+path, and hold every call against the plain version. The plain Viterbi
+takes dense tables built from the HMMs' edge lists, not from the kernel's
+sparse ones. It walks positions in Python, at a cost that hardly depends
+on the number of rows: calls up to a padded query length of REPLAY_MAX_L
+it runs one by one; the rows of all longer calls it runs as one batch,
+against which each call's kernel output is held row by row. The
+second-to-last line is
 {"kernels": [...]}: one entry per kernel with the targeted path's numbers
 and, under "wgs_path", the same numbers of the wgs path. The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
@@ -47,10 +60,15 @@ DATA_ROOT = os.path.join(REPO, "build", "trgt_tpu_torch", "data")
 N_LOCI = 96
 SEED = 42
 DEVICE = "cuda"
-# a path's Viterbi calls are replayed against the plain version up to this
-# padded query length (the plain version walks positions in Python; phase
-# 4 covers 10 kb queries)
-REPLAY_MAX_L = 4096
+# a path's Viterbi calls up to this padded query length are run through
+# the plain version one by one; the longer ones share one plain batch (the
+# plain version walks positions in Python, a quarter to half a second per
+# 100 positions whatever the batch holds)
+REPLAY_MAX_L = 2048
+# the Viterbi kernel is also timed over the calls up to this padded query
+# length alone ("ms_prev_calls"): the calls that the time of the kernel
+# before its redesign covered (PERF.md's kernel table keeps that time)
+PREV_MAX_L = 4096
 
 # roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
 # non-tensor-core fp32 rate, which also stands in for the int32 rate of
@@ -96,17 +114,19 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def compare(kernel, plain, calls):
+def compare(kernel, plain, calls, plain_calls=None):
     """Call by call: run the kernel (once to warm, once timed) and the
-    plain version (once, timed) on the argument tuple and compare them;
-    returns (max_abs_err, kernel ms, plain ms), the times summed over
-    the calls. Results are dropped call by call to bound device memory."""
+    plain version (once, timed) on the argument tuple (the plain version
+    on that of `plain_calls`, where it takes the same inputs in another
+    form) and compare them; returns (max_abs_err, kernel ms, plain ms),
+    the times summed over the calls. Results are dropped call by call to
+    bound device memory."""
     err, ms, plain_ms = 0, 0.0, 0.0
-    for args in calls:
+    for args, plain_args in zip(calls, plain_calls or calls):
         kernel(*args)
         got, t = timed(lambda: kernel(*args))
         ms += t
-        want, t = timed(lambda: plain(*args))
+        want, t = timed(lambda: plain(*plain_args))
         plain_ms += t
         err = max(err, max_abs_err(got, want))
     return err, ms, plain_ms
@@ -141,9 +161,8 @@ def work_viterbi(args):
     # one add and one compare per real edge of the row's HMM and position:
     # an edge into an emitting state is relaxed once across positions, an
     # edge into a silent state once in its level
-    from trgt_tpu_torch.kernels.viterbi_tables import NO_RANK
     _tokens, tables, lens, _ends, _num_levels = args
-    edges = (tables["R"] < NO_RANK).sum(dim=(1, 2)).double()       # (U,)
+    edges = tables["e_off"][:, -1].double()                        # (U,)
     return float((lens.double() * edges[tables["u_map"].long()]).sum()) * 2.0
 
 
@@ -298,6 +317,24 @@ def phase_flank(n_problems: int = 2000, seed: int = 7):
             text = random_dna(rng, tlen)       # unrelated text
         by_width.setdefault(bucket(len(text) + 1, minimum=64),
                             []).append((pattern, text))
+    # every width at which the kernel changes strip, class or tile (warp
+    # class up to 64, 128, 256, 512 columns; block class up to 1024 and
+    # 2048, then tiles of 4096), one column to either side; empty and
+    # one-byte texts;
+    # patterns of unequal length, so shorter ones end in pad rows
+    n_edge = 0
+    for edge in (1, 2, 64, 128, 256, 512, 1024, 2048, 4096, 8192):
+        for tlen in (edge - 2, edge - 1, edge, edge + 1):
+            for rep in range(3):
+                pattern = random_dna(rng, rng.choice([250, 250, 200, 31]))
+                core = mutate(rng, pattern, rng.choice([0.0, 0.1]))
+                left = rng.randint(0, max(0, tlen - len(core)))
+                text = (random_dna(rng, left) + core
+                        + random_dna(rng, tlen))[:max(tlen, 0)]
+                by_width.setdefault(bucket(len(text) + 1, minimum=64),
+                                    []).append((pattern, text))
+                n_edge += 1
+    n_problems += n_edge
     calls = []
     for width, probs in sorted(by_width.items()):
         pat, txt, lens = sg.encode_problems([p for p, _ in probs],
@@ -305,11 +342,33 @@ def phase_flank(n_problems: int = 2000, seed: int = 7):
         calls.append([torch.from_numpy(a).to(dev) for a in (pat, txt, lens)]
                      + [2, 6, 1])
     err, ms, plain_ms = compare(sg.flank_align, sg.flank_align_plain, calls)
-    print(f"flank fuzz: {n_problems} problems in {len(by_width)} widths, "
+    print(f"flank fuzz: {n_problems} problems ({n_edge} at class, strip "
+          f"and tile edges) in {len(by_width)} widths, "
           f"max_abs_err {err} (tolerance 0: exact), kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms")
     if err != 0:
         raise AssertionError("flank kernel disagrees with its plain version")
+
+
+def odd_hmm():
+    """[CAG, A] with a duplicate and a zero-probability in-edge on the
+    first delete state of CAG and only zero-probability edges into the
+    second (states: motif start 2, match 3-5, insert 6-8, delete 9-10)."""
+    from trgt_tpu_torch.hmm import build_hmm
+    hmm = build_hmm([b"CAG", b"A"])
+    hmm.set_trans(9, [3, 4, 3], [0.05, 0.0, 0.2])
+    hmm.set_trans(10, [4, 9], [0.0, 0.0])
+    return hmm
+
+
+def dense_calls(batches):
+    """`viterbi_plain`'s arguments for batches of (hmms, queries): the
+    dense tables, built from the HMMs' edge lists and so independent of
+    the sparse ones the kernel reads."""
+    import torch
+    from trgt_tpu_torch.kernels import viterbi as vt
+    return [vt.prepare_batch(hmms, queries, torch.device(DEVICE),
+                             sparse=False) for hmms, queries in batches]
 
 
 def phase_viterbi(seed: int = 11):
@@ -320,30 +379,60 @@ def phase_viterbi(seed: int = 11):
     rng = random.Random(seed)
     motif_sets = [[b"CAG"], [b"CAG", b"A"], [b"AAG", b"CAAC"],
                   [b"AATGG", b"CCATTTTAGG"], [b"T", b"GATA", b"CCATAGG"]]
+    # short queries only (the plain version walks positions in Python):
+    # 29, 32 and 35 states; 62 and 65; 63 and 66 from two motifs; four and
+    # five motifs (five and six in-edges into the run-end state); a motif
+    # of one base alone
+    short_sets = [[b"ACGTTGC"], [b"ACGTTGCA"], [b"ACGTTGCAT"],
+                  [b"ACGTTGCATGGACTTAAC"], [b"ACGTTGCATGGACTTAACG"],
+                  [b"ACGTTGCAT", b"GGACTTAAC"], [b"ACGTTGCATG", b"GGACTTAAC"],
+                  [b"A", b"CG", b"TTA", b"GGCA"],
+                  [b"A", b"CG", b"TTA", b"GGCA", b"CCTGA"], [b"G"]]
     hmms = [build_hmm(m) for m in motif_sets]
+    short_hmms = [build_hmm(m) for m in short_sets] + [odd_hmm()]
+    short_sets = short_sets + [[b"CAG", b"A"]]
     # every topology at every length, and the topologies MIXED inside
-    # each batch (tables padded to the largest state count); the plain
-    # version walks positions in Python, so the lengths stay few
+    # each batch (tables padded to the largest state count)
     by_len = {}
+    n_dead = 0
     for qlen in (30, 300, 3000, 10000):
-        for k, ms in enumerate(motif_sets):
+        sets = list(zip(hmms, motif_sets))
+        if qlen <= 300:
+            sets += list(zip(short_hmms, short_sets))
+        for k, (hmm, ms) in enumerate(sets):
             q = bytearray()
             while len(q) < qlen:
                 q += mutate(rng, rng.choice(ms), 0.03)
+            q = q[:qlen]
+            if qlen <= 300 and k % 3 == 0:
+                # an N encodes as the '#' sentinel: no valid path, and the
+                # traceback walks the invalid states' predecessor words
+                q[qlen // 2] = ord("N")
+                n_dead += 1
             by_len.setdefault(bucket(qlen + 2, minimum=64), []).append(
-                (hmms[k], bytes(q[:qlen]).decode()))
+                (hmm, bytes(q).decode()))
     n = sum(len(v) for v in by_len.values())
-    phase(f"viterbi: kernel vs plain, {n} multi-motif queries")
-    calls = [vt.prepare_batch([h for h, _ in items], [q for _, q in items],
-                              torch.device(DEVICE))
-             for _key, items in sorted(by_len.items())]
-    err, ms, plain_ms = compare(vt.viterbi_segs, vt.viterbi_plain, calls)
-    print(f"viterbi fuzz: {n} queries of 30..10000 bases in {len(calls)} "
-          f"batches, max_abs_err {err} (tolerance 0: exact), kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+    phase(f"viterbi: kernel vs plain, {n} queries, {n_dead} of them with "
+          f"no valid path")
+    batches = [([h for h, _ in items], [q for _, q in items])
+               for _key, items in sorted(by_len.items())]
+    dev = torch.device(DEVICE)
+    calls = [vt.prepare_batch(hs, qs, dev) for hs, qs in batches]
+    err, ms, plain_ms = compare(vt.viterbi_segs, vt.viterbi_plain, calls,
+                                dense_calls(batches))
+    dead = sum(int((vt.viterbi_segs(*args)[-1, :, 0] == 0).sum())
+               for args in calls)
+    print(f"viterbi fuzz: {n} queries of 30..10000 bases over "
+          f"{len(hmms) + len(short_hmms)} topologies in {len(calls)} "
+          f"batches, {dead} rows without a valid path, max_abs_err {err} "
+          f"(tolerance 0: exact, invalid rows included), kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms")
     if err != 0:
         raise AssertionError("viterbi kernel disagrees with its plain "
                              "version")
+    if dead != n_dead:
+        raise AssertionError(f"{dead} rows without a valid path, expected "
+                             f"{n_dead}")
 
 
 def phase_editdist(n_pairs: int = 4000, seed: int = 13):
@@ -519,6 +608,10 @@ def drive_path(dsdir, reads, preset, expect):
     been launched. Returns (launches, captures)."""
     table = kernel_table()
     caps = {name: Capture(k["module"], k["fn"]) for name, k in table.items()}
+    # the (hmms, queries) of every Viterbi call, for the plain version's
+    # own tables
+    caps["viterbi_batches"] = Capture(table["viterbi"]["module"],
+                                      "prepare_batch")
     with contextlib.ExitStack() as stack:
         for cap in caps.values():
             stack.enter_context(cap)
@@ -562,35 +655,104 @@ def low_quality_reads(dsdir: str) -> str:
     return name
 
 
+def kernel_ms(kernel, calls) -> float:
+    """Device milliseconds of the kernel over the calls, each warmed once
+    and timed once."""
+    total = 0.0
+    for args in calls:
+        kernel(*args)
+        total += timed(lambda: kernel(*args))[1]
+    return total
+
+
+def hold_rows(kernel, plain, calls, batches):
+    """The Viterbi kernel's output on each of `calls` against ONE run of
+    the plain version over all their rows (`batches`: each call's hmms
+    and queries): rows do not act on one another, so a row's segments are
+    those of its own call, padded with -1 to the batch's positions and
+    levels. Holds for rows with a valid path, which is every row of a
+    genotype run that ended. Returns (max_abs_err, plain ms)."""
+    args = dense_calls([([h for hmms, _ in batches for h in hmms],
+                         [q for _, queries in batches for q in queries])])[0]
+    want, plain_ms = timed(lambda: plain(*args))
+    err, lo = 0, 0
+    for call in calls:
+        got = kernel(*call)
+        L, B, K = got.shape[0] - 1, got.shape[1], got.shape[2]
+        rows = want[:, lo:lo + B]
+        lo += B
+        if not bool(got[L].all()):
+            raise AssertionError("a replayed Viterbi row has no valid path")
+        err = max(err, max_abs_err(got[:L], rows[:L, :, :K]),
+                  max_abs_err(got[L, :, 0], rows[-1, :, 0]))
+        if not (bool((rows[L:-1] == -1).all())
+                and bool((rows[:L, :, K:] == -1).all())):
+            raise AssertionError("the plain batch's rows are not empty "
+                                 "beyond a call's positions and levels")
+    if lo != want.shape[1]:
+        raise AssertionError(f"{lo} rows held, {want.shape[1]} in the batch")
+    return err, plain_ms
+
+
 def replay(path, table, caps):
     """Every kernel launched on `path` against its plain version on the
-    inputs the cuda run gave it; {kernel name: numbers of this replay}."""
+    inputs the cuda run gave it; {kernel name: numbers of this replay}.
+    Time and bound cover every call, and every call is held: the Viterbi
+    calls over REPLAY_MAX_L through `hold_rows`, all else call by call."""
     phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
     out = {}
     for name, k in table.items():
-        all_calls = caps[name].calls
-        if not all_calls:
+        calls = caps[name].calls
+        if not calls:
             continue
-        calls = all_calls
-        if name == "viterbi":
-            calls = [a for a in calls if a[0].shape[1] <= REPLAY_MAX_L]
         kernel = getattr(k["module"], k["fn"])
         t0 = time.perf_counter()
-        err, ms, plain_ms = compare(kernel, k["plain"], calls)
+        extra = {}
+        if name == "viterbi":
+            batches = [(a[0], a[1]) for a in caps["viterbi_batches"].calls]
+            if [len(q) for _, q in batches] != [a[0].shape[0] for a in calls]:
+                raise AssertionError("the captured Viterbi batches do not "
+                                     "pair with the kernel's calls")
+            own = [i for i, a in enumerate(calls)
+                   if a[0].shape[1] <= REPLAY_MAX_L]
+            rest = [i for i in range(len(calls)) if i not in own]
+            err, _, plain_ms = compare(
+                kernel, k["plain"], [calls[i] for i in own],
+                dense_calls([batches[i] for i in own]))
+            if rest:
+                err_rows, ms_rows = hold_rows(
+                    kernel, k["plain"], [calls[i] for i in rest],
+                    [batches[i] for i in rest])
+                err, plain_ms = max(err, err_rows), plain_ms + ms_rows
+            ms = kernel_ms(kernel, calls)
+            prev_calls = [a for a in calls if a[0].shape[1] <= PREV_MAX_L]
+            extra = {"held_in_one_plain_batch": len(rest),
+                     "ms_prev_calls": kernel_ms(kernel, prev_calls),
+                     "prev_calls": len(prev_calls)}
+        else:
+            err, ms, plain_ms = compare(kernel, k["plain"], calls)
         bound, bound_by, n_bytes, n_ops = bound_ms(kernel, k["work"], calls,
                                                    k.get("io_bytes"))
-        print(f"{name}: replayed {len(calls)} of {len(all_calls)} "
-              f"{path}-path calls in {time.perf_counter() - t0:.1f} s, "
-              f"max_abs_err {err} (tolerance 0), kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.6f} ms by {bound_by} "
-              f"({n_bytes} bytes, {n_ops:.0f} operations; totals over the "
-              f"replayed calls)", flush=True)
+        print(f"{name}: {len(calls)} {path}-path calls timed and held "
+              f"against the plain version in "
+              f"{time.perf_counter() - t0:.1f} s: max_abs_err {err} "
+              f"(tolerance 0), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound:.6f} ms by {bound_by} ({n_bytes} bytes, "
+              f"{n_ops:.0f} operations)", flush=True)
+        if extra:
+            print(f"viterbi: the {extra['held_in_one_plain_batch']} calls "
+                  f"over {REPLAY_MAX_L} positions held row by row against "
+                  f"one plain batch of their rows, none left unheld; kernel "
+                  f"{extra['ms_prev_calls']:.3f} ms over the "
+                  f"{extra['prev_calls']} calls up to {PREV_MAX_L} "
+                  f"positions", flush=True)
         if err != 0:
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version on the {path} path's inputs")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": bound_by,
-                     "library_ms": None, "replayed_calls": len(calls)}
+                     "library_ms": None, "timed_calls": len(calls),
+                     "held_calls": len(calls), **extra}
     return out
 
 

@@ -1,7 +1,14 @@
 """The port's flank alignment (trgt_tpu_torch/kernels/semiglobal.py) held
 exactly against the Pallas flank kernels (interpret mode on the CPU), the
 JAX package's batched entry point and the host twin. Every comparison is
-exact: integer-valued scores, match counts and spans."""
+exact: integer-valued scores, match counts and spans.
+
+The CUDA kernel picks its class (a warp or a block per problem), its
+strip and its tiles from the padded text width; `edge_problems` makes
+texts one column to either side of each such width. On the CPU they go
+through `flank_align_batch_multi` (grouping, chunking and output order
+are the wrapper's and the same for both devices); the `cuda` cases send
+the same problems through the kernel."""
 
 import random
 
@@ -151,6 +158,83 @@ def test_mismatch_edged_spans():
     assert got[0][2] == (5, 5 + len(core))
 
 
+# padded widths at which csrc/flank.cu changes strip (64, 128, 256), class
+# (512: the widest warp-class width) and block shape (1024, 2048); beyond,
+# a tile is 4096 columns
+KERNEL_EDGES = [64, 128, 256, 512, 1024, 2048]
+
+
+def edge_problems(edge, plen, seed, ragged=True):
+    """Texts of edge-2 .. edge+1 bytes (edge-1 is the longest text of the
+    padded width `edge`), three of each, an implant of the pattern in
+    each; with `ragged`, patterns of unequal length, so some end in pad
+    rows (the JAX entry points want equal lengths)."""
+    rng = random.Random(seed)
+    patterns, texts = [], []
+    for tlen in (edge - 2, edge - 1, edge, edge + 1):
+        for rep in range(3):
+            pattern = random_dna(rng, plen - 3 * rep if ragged else plen)
+            core = mutate(rng, pattern, [0.0, 0.1, 0.3][rep])
+            if rep == 2:
+                core = core + core             # duplicate implant: ties
+            left = random_dna(rng, rng.randint(0, max(0, tlen - len(core))))
+            patterns.append(pattern)
+            texts.append((left + core + random_dna(rng, tlen))[:tlen])
+    return patterns, texts
+
+
+@pytest.mark.parametrize("edge", [64, 128, 256, 512])
+def test_class_edges_match_pallas_and_host(edge):
+    # 510..513 columns straddle the Pallas leaf's own switch from the
+    # segmented kernel to the one-problem-per-row kernel as well
+    patterns, texts = edge_problems(edge, 40, edge, ragged=False)
+    got = sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, CPU)
+    assert got == flank_align_batch_pallas(patterns, texts, 2, 5, 1)
+    for p, t, (score, matches, span) in zip(patterns, texts, got):
+        h_score, h_matches, _, h_span = align_ends_free_text(p, t, 2, 5, 1)
+        assert (score, matches, span) == (h_score, h_matches, h_span)
+
+
+@pytest.mark.parametrize("edge", [1024, 2048])
+def test_tile_edges_match_host(edge):
+    patterns, texts = edge_problems(edge, 30, edge)
+    got = sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, CPU)
+    for p, t, (score, matches, span) in zip(patterns, texts, got):
+        h_score, h_matches, _, h_span = align_ends_free_text(p, t, 2, 5, 1)
+        assert (score, matches, span) == (h_score, h_matches, h_span)
+
+
+def test_empty_and_one_byte_texts():
+    pattern = b"ACGTAC"
+    texts = [b"", b"A", b"C", b"AC"]
+    got = sg.flank_align_batch_multi([pattern] * 4, texts, 2, 5, 1, CPU)
+    assert got == jax_flank_align_batch_multi([pattern] * 4, texts, 2, 5, 1)
+    # all of the pattern deleted: gap open + extend, then five extends
+    assert got[0] == (11.0, 0, (0, 0))
+    # (the host twin answers an empty text with score 0 without aligning)
+    for t, (score, matches, span) in list(zip(texts, got))[1:]:
+        h_score, h_matches, _, h_span = align_ends_free_text(
+            pattern, t, 2, 5, 1)
+        assert (score, matches, span) == (h_score, h_matches, h_span)
+
+
+def test_output_order_survives_grouping_and_chunking(monkeypatch):
+    # widths interleaved, and chunks of a few problems: results come back
+    # in input order
+    patterns, texts = [], []
+    for edge in (64, 512, 128, 1024, 256):
+        p, t = edge_problems(edge, 25, edge + 1)
+        patterns += p[::3]
+        texts += t[::3]
+    whole = sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, CPU)
+    monkeypatch.setattr(sg, "MAX_CHUNK_CELLS", 3000)
+    assert sg.flank_align_batch_multi(patterns, texts, 2, 5, 1,
+                                      CPU) == whole
+    for p, t, (score, matches, span) in zip(patterns, texts, whole):
+        h_score, h_matches, _, h_span = align_ends_free_text(p, t, 2, 5, 1)
+        assert (score, matches, span) == (h_score, h_matches, h_span)
+
+
 def test_wrapper_rejects_other_devices():
     t = torch.zeros((1, 8), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -173,3 +257,15 @@ def test_cuda_kernel_matches_plain(cuda_device):
         want = sg.flank_align_plain(*args, 2, 6, 1).cpu()
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert sg.launches > launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", KERNEL_EDGES + [4096, 8192])
+def test_cuda_kernel_class_edges(cuda_device, edge):
+    patterns, texts = edge_problems(edge, 250, edge)
+    patterns += [patterns[0]] * 2
+    texts += [b"", b"A"]
+    launches = sg.launches
+    got = sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, cuda_device)
+    assert sg.launches > launches
+    assert got == sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, CPU)

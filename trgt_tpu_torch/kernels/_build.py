@@ -37,9 +37,11 @@ build_info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "trgt_flank_align": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "trgt_viterbi": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "trgt_flank_align": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    "trgt_viterbi": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                     _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                     _P, _P],
+    "trgt_viterbi_slice_bytes": [_I, _I, _I, _I],
     "trgt_edit_distances": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
     "trgt_e2e_scan": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                       _I, _I, _P],

@@ -2,9 +2,12 @@
 
 Counterpart of `trgt_tpu.kernels.semiglobal.flank_align_batch_multi`,
 whose TPU kernels are `trgt_tpu/kernels/semiglobal_pallas.py`
-`_flank_kernel` and `_flank_kernel_seg`. Here one CUDA kernel
-(`csrc/flank.cu`) covers every text width, so the segmented packing of
-short texts has no counterpart.
+`_flank_kernel` and `_flank_kernel_seg`. The CUDA kernels
+(`csrc/flank.cu`) keep a problem's row state in registers and come in
+two classes chosen from the padded text width: widths up to 512 columns
+take one warp per problem and four problems per block, wider ones a
+block per problem. Every problem has its own text length, so the
+segmented packing of short texts has no counterpart of its own.
 
 Layers:
   flank_align_batch_multi  bytes in, [(score, matches, (start, end))] out;
@@ -32,8 +35,10 @@ launches = 0
 
 _INF = 1 << 40
 _KEY = 1 << 24          # column index packing for the plain scan
-# cells (problems x padded width) per chunk: bounds the kernel's 32-byte
-# per-column scratch and the plain version's temporaries
+# cells (problems x padded width) per chunk: bounds the plain version's
+# temporaries (some twenty int64 arrays of that many cells); the kernel
+# keeps its row state in registers and needs no scratch, so for it a chunk
+# is only the staged pattern and text bytes
 MAX_CHUNK_CELLS = 1 << 22
 
 
@@ -141,15 +146,12 @@ def _flank_align_cuda(pattern, text, lens, mism, go_ge, ge):
     B = text.shape[0]
     if pattern.shape[0] != B or lens.shape != (B,):
         raise ValueError("flank kernel: batch sizes disagree")
-    # 32 bytes of row state per column, W + 1 columns per problem
-    scratch = torch.empty((max(B, 1) * (text.shape[1] + 1), 8),
-                          dtype=torch.int32, device=text.device)
     out = torch.empty((B, 4), dtype=torch.int32, device=text.device)
     lib = get_lib()
     rc = lib.trgt_flank_align(
         pattern.data_ptr(), pattern.shape[1], text.data_ptr(),
-        text.shape[1], lens.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        B, int(mism), int(go_ge), int(ge),
+        text.shape[1], lens.data_ptr(), out.data_ptr(), B, int(mism),
+        int(go_ge), int(ge),
         torch.cuda.current_stream(text.device).cuda_stream)
     launches += 1
     check(rc, "flank kernel launch")
@@ -161,7 +163,9 @@ def flank_align(pattern: torch.Tensor, text: torch.Tensor,
                 ge: int) -> torch.Tensor:
     """Flank alignment of tensors already on their device; same contract
     as `flank_align_plain`. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    tensors the kernel, which wants every text shorter than the padded
+    width W (a text of len bytes has len + 1 columns; `encode_problems`
+    pads so) and traps on a longer one."""
     if text.device.type == "cpu":
         return flank_align_plain(pattern, text, lens, mism, go_ge, ge)
     if text.device.type == "cuda":

@@ -10,7 +10,16 @@ Layers:
   viterbi_segs         dispatch on the tensors' device: CPU tensors run
                        `viterbi_plain`, CUDA tensors launch the kernel,
                        anything else raises
-  viterbi_plain        the plain PyTorch version (any device)
+  viterbi_plain        the plain PyTorch version (any device), a dense
+                       relax over (U, S, S) tables
+
+The kernel relaxes over in-edge lists instead: `prepare_batch` gives a
+CUDA device the sparse tables of `viterbi_tables.stack_sparse_tables`
+(built once per `Hmm` on the host), which are a few kilobytes where the
+dense ones are S x S per topology. `viterbi_plain` takes the dense ones
+only, which `stack_tables` builds from the HMMs' edge lists on their own:
+`prepare_batch(..., sparse=False)` gives them on any device, so a check
+of the kernel against the plain version also checks the sparse tables.
 
 Both produce the (L+1, B, K) int16 array of `_viterbi_full`: rows
 0..L-1 are per-column traceback segments [entry, silent..., emitting]
@@ -18,7 +27,7 @@ padded with -1, row L holds the per-row ok flag; K = num_levels + 1.
 """
 
 import contextlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,7 +35,8 @@ import torch
 from ..hmm.model import Hmm
 from .bucket import bucket
 
-from .viterbi_tables import (NEG, NO_RANK, encode_queries, stack_tables,
+from .viterbi_tables import (NEG, NO_RANK, encode_queries,
+                             stack_sparse_tables, stack_tables,
                              tables_to_torch)
 
 # times the CUDA kernel was launched (chip_smoke.py resets and reads it)
@@ -36,9 +46,13 @@ launches = 0
 MAX_PRED_BYTES = 1 << 28
 # CUDA streams the length groups of one call are spread over
 MAX_STREAMS = 32
-# states one kernel thread may own (csrc/viterbi.cu kMaxPerThread)
-_MAX_PER_THREAD = 4
-# shared memory the kernel may take for the column, emissions and tables
+# batch rows (one warp each) a block of the kernel holds at most
+_MAX_WARPS = 4
+# states a predecessor word of the kernel can name (14 bits)
+_MAX_STATES = (1 << 14) - 1
+# positions whose words the kernel's traceback stages at a time
+_TRACEBACK_CHUNK = 32
+# shared memory a block of the kernel may take
 _SMEM_LIMIT = 200 * 1024
 
 
@@ -47,9 +61,9 @@ def viterbi_plain(tokens: torch.Tensor, tables: Dict[str, torch.Tensor],
                   num_levels: int) -> torch.Tensor:
     """PyTorch port of `_forward` + `_viterbi_full` on any device.
 
-    tokens (B, L) int8; tables from `tables_to_torch`; lens (B,) query
-    lengths with the '#' sentinels (0 = empty row); ends (B,) end states.
-    Returns (L+1, B, K) int16."""
+    tokens (B, L) int8; tables from `stack_tables` through
+    `tables_to_torch`; lens (B,) query lengths with the '#' sentinels
+    (0 = empty row); ends (B,) end states. Returns (L+1, B, K) int16."""
     u = tables["u_map"].long()
     T = tables["T"][u]                                  # (B, S, S)
     R = tables["R"][u].long()
@@ -141,51 +155,56 @@ def _viterbi_cuda(tokens, tables, lens, ends, num_levels):
     global launches
     dev = tokens.device
     B, L = tokens.shape
-    U, S, _ = tables["T"].shape
+    if "e_off" not in tables:
+        raise ValueError("viterbi kernel: needs the sparse tables of "
+                         "stack_sparse_tables")
+    S = tables["e_off"].shape[1] - 1
+    E = tables["e_src"].shape[1]
+    NS = tables["sched"].shape[1]
+    P = tables["ph_off"].shape[1] - 1
     K = num_levels + 1
-    if S >= NO_RANK:
-        raise ValueError(f"viterbi kernel: {S} states exceed the int16 "
-                         f"predecessor encoding")
-    threads = min(1024, (S + 31) // 32 * 32)
-    if S > threads * _MAX_PER_THREAD:
-        raise ValueError(f"viterbi kernel: {S} states exceed "
-                         f"{threads * _MAX_PER_THREAD}")
-    args = [tokens, lens, ends, tables["u_map"]]
-    for name, t, dtype in zip(("tokens", "lens", "ends", "u_map"), args,
-                              (torch.int8, torch.int32, torch.int32,
-                               torch.int32)):
+    if S > _MAX_STATES:
+        raise ValueError(f"viterbi kernel: {S} states exceed the "
+                         f"{_MAX_STATES} a predecessor word holds")
+    lib = get_lib()
+    # a row's slice of shared memory: two columns, emissions, the 4-wide
+    # edge tables by state and by schedule slot, the phases, flags, the
+    # position's words, and two chunks of positions' words for the
+    # traceback: the longest chunk that leaves room for the rest
+    chunk = _TRACEBACK_CHUNK
+    per_warp = lib.trgt_viterbi_slice_bytes(S, NS, P, chunk)
+    while per_warp > _SMEM_LIMIT and chunk > 1:
+        chunk //= 2
+        per_warp = lib.trgt_viterbi_slice_bytes(S, NS, P, chunk)
+    if per_warp > _SMEM_LIMIT:
+        raise ValueError(f"viterbi kernel: {S} states need {per_warp} bytes "
+                         f"of shared memory a row, over the {_SMEM_LIMIT} "
+                         f"a block may take")
+    warps = min(_MAX_WARPS, _SMEM_LIMIT // per_warp)
+    kinds = dict(tokens=torch.int8, lens=torch.int32, ends=torch.int32,
+                 u_map=torch.int32, e_off=torch.int32, e_src=torch.int16,
+                 e_lp=torch.float32, em=torch.float32, silent=torch.bool,
+                 has_edges=torch.bool, no_edge_emit=torch.bool,
+                 sched=torch.int16, sl_link=torch.int16,
+                 sl_edge=torch.int16, ph_off=torch.int16,
+                 ph_depth=torch.int16)
+    named = dict(tables, tokens=tokens, lens=lens, ends=ends)
+    for name, dtype in kinds.items():
+        t = named[name]
         if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"viterbi kernel: {name} must be a contiguous "
                              f"{dtype} tensor on {dev}")
-    # the kernel reads T and R as [src][dst] (conflict-free relax loop)
-    Tt = tables["T"].transpose(1, 2).contiguous()
-    Rt = tables["R"].transpose(1, 2).contiguous()
-    em = tables["em"].contiguous()
-    flags = {k: tables[k].contiguous() for k in
-             ("silent", "has_edges", "no_edge_emit", "level_masks")}
-    # edges into the silent-level states, the most of any topology (int()
-    # waits for the current stream only, which holds this batch alone)
-    in_levels = tables["level_masks"].any(dim=1)                # (U, S)
-    has_edge = tables["R"] < NO_RANK                            # (U, dst, src)
-    edge_cap = int((has_edge.sum(dim=2) * in_levels).sum(dim=1).max())
-    # column x2, emissions x5, level values, five int arrays of S
-    # (csrc/viterbi.cu), the CSR end, level offsets and silent in-edges,
-    # then optionally T and R
-    smem = 13 * S * 4 + (1 + num_levels + 1 + edge_cap) * 4
-    table_bytes = S * S * (4 + 2)
-    in_smem = smem + table_bytes <= _SMEM_LIMIT
-    if in_smem:
-        smem += table_bytes
-    pv = torch.empty((L, B, S), dtype=torch.int16, device=dev)
+    # predecessor words, a row's positions side by side, each position's
+    # words padded to 16 bytes
+    pv = torch.empty((B, L, (S + 7) // 8 * 8), dtype=torch.int16, device=dev)
     out = torch.empty((L + 1, B, K), dtype=torch.int16, device=dev)
-    lib = get_lib()
+    ptr = lambda name: named[name].data_ptr()
     rc = lib.trgt_viterbi(
-        tokens.data_ptr(), L, B, lens.data_ptr(), ends.data_ptr(),
-        tables["u_map"].data_ptr(), Tt.data_ptr(), Rt.data_ptr(),
-        em.data_ptr(), flags["silent"].data_ptr(),
-        flags["has_edges"].data_ptr(), flags["no_edge_emit"].data_ptr(),
-        flags["level_masks"].data_ptr(), S, num_levels, edge_cap,
-        int(in_smem), smem, threads, pv.data_ptr(), out.data_ptr(),
+        ptr("tokens"), L, B, ptr("lens"), ptr("ends"), ptr("u_map"),
+        ptr("e_off"), ptr("e_src"), ptr("e_lp"), E, ptr("em"),
+        ptr("silent"), ptr("has_edges"), ptr("no_edge_emit"), ptr("sched"),
+        ptr("sl_link"), ptr("sl_edge"), ptr("ph_off"), ptr("ph_depth"), NS,
+        P, S, K, chunk, warps, per_warp, pv.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     check(rc, "viterbi kernel launch")
@@ -206,11 +225,16 @@ def viterbi_segs(tokens: torch.Tensor, tables: Dict[str, torch.Tensor],
 
 
 def prepare_batch(hmms: Sequence[Hmm], queries: Sequence[str],
-                  device: torch.device):
+                  device: torch.device, sparse: Optional[bool] = None):
     """Encode one batch of non-empty queries: (tokens, tables, lens,
-    ends, num_levels) as tensors on `device`."""
+    ends, num_levels) as tensors on `device`. A CUDA device gets the
+    sparse tables the kernel reads, any other the dense ones of
+    `viterbi_plain`; `sparse` overrides that choice."""
     toks, lens = encode_queries(queries)
-    tables_np, num_levels = stack_tables(hmms)
+    if sparse is None:
+        sparse = device.type == "cuda"
+    stack = stack_sparse_tables if sparse else stack_tables
+    tables_np, num_levels = stack(hmms)
     ends = np.array([h.num_states - 1 for h in hmms], dtype=np.int32)
     to = lambda a: torch.from_numpy(a).to(device)
     return (to(toks), tables_to_torch(tables_np, device), to(lens),
@@ -238,8 +262,12 @@ def viterbi_batch_multi(hmms: Sequence[Hmm], queries: Sequence[str],
         step = max(1, MAX_PRED_BYTES // (2 * L * S))
         batches.extend(idxs[lo:lo + step] for lo in range(0, len(idxs), step))
     # every batch is launched before the first result is read back; on a
-    # GPU each gets its own stream, so the few-block launches of different
-    # length groups run side by side instead of one after another
+    # GPU each gets its own stream: a launch lasts as long as its longest
+    # query (the position loop is serial) and fills a few SMs, so the
+    # length groups run side by side instead of one after another (the
+    # targeted bench run's calls replayed: 219-291 ms with streams, 388-606
+    # ms on one stream, NVIDIA H100 80GB HBM3, 700 W; chip_profile.py
+    # streams)
     streams = ([torch.cuda.Stream(device) for _ in
                 range(min(len(batches), MAX_STREAMS))]
                if device.type == "cuda" else [])
