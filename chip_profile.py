@@ -4,12 +4,16 @@
     python3 chip_profile.py scaling
     python3 chip_profile.py streams
 
-`scaling` times the two kernels whose cost is latency between serial
-steps, alone, at shapes that take that cost apart: the Viterbi kernel on
-one to 128 rows of 4000 bases over motifs of 1 to 30 bases (the silent
-chain per position grows with the motif), as ns per position; the flank
-kernel on 512 problems at every padded width from 64 to 16384 columns
-(pattern 250), as ns per row and ps per cell. `streams` records the
+`scaling` times the kernels, whose cost is latency between serial steps,
+alone, at shapes that take that cost apart: the Viterbi kernel on one to
+128 rows of 4000 bases over motifs of 1 to 30 bases (the silent chain per
+position grows with the motif), as ns per position; the flank kernel on
+512 problems at every padded width from 64 to 16384 columns (pattern
+250), as ns per row and ps per cell; both e2e classes on near-identical
+pairs, as us per pattern row by text or band width, each beside a copy of
+csrc/e2e.cu built without the traceback (its share is the difference);
+the edit-distance kernel as ns per pair by short-side length and batch
+size. `streams` records the
 (HMMs, queries) of every `viterbi_batch_multi` call of one bench96
 targeted run and replays them with the length groups of a call spread
 over up to MAX_STREAMS CUDA streams, as the port runs them, and on one
@@ -28,6 +32,8 @@ import os
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 import chip_smoke as cs
 
@@ -104,6 +110,115 @@ def scaling() -> None:
         print(f"  width {width:5d} x {n:3d} problems: {ms:8.3f} ms, "
               f"{ms * 1e6 / 250:9.1f} ns per row, "
               f"{ms * 1e9 / (250 * width * n):8.2f} ps per cell")
+    scaling_e2e(rng)
+    scaling_editdist(rng)
+
+
+def without_traceback():
+    """csrc/e2e.cu with all three kernels' traceback cut out (they report no
+    runs), built beside the library under build/; the loaded copy, to
+    stand in as `_build._lib` while a call is timed."""
+    import ctypes
+    import subprocess
+    from trgt_tpu_torch.kernels import _build
+    with open(os.path.join(_build.CSRC_DIR, "e2e.cu")) as fh:
+        source = fh.read()
+    cut = source.replace("traceback(at, pat, txt, lp, lt, out, lane)", "0") \
+                .replace("traceback(at, pat, txt, lp, lt, out, tid)", "0")
+    if cut.count("const int count = 0;") != 3:
+        raise RuntimeError("csrc/e2e.cu: the traceback calls moved")
+    out_dir = os.path.join(_build.BUILD_DIR, "without_traceback")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "e2e.cu")
+    with open(src, "w") as fh:
+        fh.write(cut)
+    lib_path = os.path.join(out_dir, "libe2e.so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib_path, src],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(lib_path)
+    for name in ("trgt_e2e_scan", "trgt_e2e_band"):
+        getattr(lib, name).argtypes = _build._SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def scaling_e2e(rng) -> None:
+    import torch
+    from trgt_tpu_torch.kernels import _build, e2e
+    dev = torch.device("cuda")
+    whole = _build.get_lib()
+    cut = without_traceback()
+
+    def both(fn):
+        """ms with and without the traceback, in turns."""
+        times = {}
+        for lib in (whole, cut, cut, whole):
+            _build._lib = lib
+            ms = best_ms(fn)
+            times[lib is cut] = min(ms, times.get(lib is cut, ms))
+        _build._lib = whole
+        return times[False], times[True]
+
+    n_rows = 256
+    print(f"e2e full-matrix class, 16 near-identical pairs, pattern "
+          f"{n_rows}: ms, us per pattern row, traceback share")
+    for width in (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 2048):
+        pairs = []
+        for _ in range(16):
+            t = cs.random_dna(rng, width - 1)
+            p = cs.edit_few(rng, (t + cs.random_dna(rng, n_rows))[:n_rows], 4)
+            pairs.append((p[:n_rows], t))
+        args = [torch.from_numpy(x).to(dev)
+                for x in e2e.encode_problems(pairs)]
+        ms, ms_cut = both(lambda: e2e.e2e_scan(*args, 2, 5, 1, False))
+        print(f"  text {width - 1:5d}: {ms:8.3f} ms, "
+              f"{ms * 1e3 / n_rows:7.3f} us per row, traceback "
+              f"{100 * (ms - ms_cut) / ms:5.1f} %")
+    n_rows = 4000
+    print(f"e2e band class, 8 near-identical pairs, pattern {n_rows}, W "
+          f"{e2e.BAND_W0}: ms, us per pattern row, traceback share")
+    # band widths of extra + 65 lanes, on both sides of each kernel's limit
+    for extra in (0, 63, 64, 191, 192, 447, 448, 959, 960, 1983, 1984, 4031,
+                  4032, 8000):
+        pairs = []
+        for _ in range(8):
+            p = cs.random_dna(rng, n_rows)
+            t = cs.edit_few(rng, p, 8)
+            cut_at = rng.randrange(n_rows)
+            t = t[:cut_at] + cs.random_dna(rng, extra + len(p) - len(t)) \
+                + t[cut_at:]
+            pairs.append((p, t[:len(p) + extra]))
+        arrays = e2e.encode_problems(pairs)
+        ws = np.full(len(pairs), e2e.BAND_W0, dtype=np.int32)
+        width = int(e2e.band_geometry(arrays[2], arrays[3], ws)[2].max())
+        args = [torch.from_numpy(x).to(dev) for x in arrays + (ws,)]
+        ms, ms_cut = both(
+            lambda: e2e.e2e_banded(*args, width, 2, 5, 1, False))
+        sure = int(e2e.e2e_banded(*args, width, 2, 5, 1, False)[4].sum())
+        print(f"  band {width:5d} lanes ({sure} of 8 certified): "
+              f"{ms:8.3f} ms, {ms * 1e3 / n_rows:7.3f} us per row, "
+              f"traceback {100 * (ms - ms_cut) / ms:5.1f} %")
+
+
+def scaling_editdist(rng) -> None:
+    import torch
+    from trgt_tpu_torch.kernels import editdist as ed
+    dev = torch.device("cuda")
+    print("edit-distance kernel: ms and ns per pair by short side, long "
+          "side and batch")
+    for la in (1, 8, 32, 64, 100):
+        for lb in sorted({la, ed.MAX_OPS // la}):
+            for batch in (1, 64, 4096):
+                pairs = []
+                for _ in range(batch):
+                    a = cs.random_dna(rng, la)
+                    pairs.append((a, cs.edit_few(
+                        rng, (a * (lb // la + 1))[:lb], 4)[:lb]))
+                args = [torch.from_numpy(x).to(dev)
+                        for x in ed.encode_pairs(pairs, max(lb, 128))]
+                ms = best_ms(lambda: ed.edit_distances(*args))
+                print(f"  {la:3d} x {lb:5d}, {batch:4d} pairs: {ms:8.4f} "
+                      f"ms, {ms * 1e6 / batch:10.1f} ns per pair")
 
 
 def streams() -> None:

@@ -18,11 +18,21 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   duplicate and zero-probability edges, rows with no
                   valid path (their garbage segments equal too)
   5. editdist     kernel == plain version, exactly, on seeded pairs of
-                  0..100 bases a side and some 1 x 10000
-  6. e2e          kernel == plain version, exactly (score, direction
-                  bits, CIGAR runs), on pairs of 1..1000 bases under the
-                  scorings (2,5,1) and (1,0,1); CIGARs equal to the host
-                  aligner's
+                  0..100 bases a side, some 1 x 10000, short sides on
+                  both sides of 32, 64 and 100 against long sides up to
+                  10000 / short, and empty sides
+  6. e2e          both kernel classes == their plain versions, exactly
+                  (score, direction bits, CIGAR runs, certificate), under
+                  the scorings (2,5,1) and (1,0,1): the full-matrix class
+                  on pairs of 1..1000 bases and on texts at every width
+                  where it changes strip or tile; the band class at band
+                  widths on both sides of each of its kernels' limits,
+                  certified and not; then `e2e_align_batch` ==
+                  the host aligner on all of these and on pairs up to 10
+                  kb a side: near-identical, with length differences up
+                  to 3 kb, divergent ones that are launched again with a
+                  wider band, and two whose band passes the caps and
+                  goes to the host aligner
   7. wgs path     `genotype` of the 96-locus heterogeneous bench catalog
                   (utils.synth.cached_hetero_dataset) with --device cuda
                   and --device host: identical VCF and spanning-BAM
@@ -34,7 +44,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   records, all four kernels launched; then the same
                   replay of this run's inputs
 Both replays time the kernel and reckon its bound over every call of the
-path, and hold every call against the plain version. The plain Viterbi
+path, and hold every call against the plain version. The plain banded e2e
+walks pattern rows in Python, so the problems of all band calls of a path
+go through it in a few batches, against which each call's kernel output
+is held problem by problem. The plain Viterbi
 takes dense tables built from the HMMs' edge lists, not from the kernel's
 sparse ones. It walks positions in Python, at a cost that hardly depends
 on the number of rows: calls up to a padded query length of REPLAY_MAX_L
@@ -64,11 +77,16 @@ DEVICE = "cuda"
 # the plain version one by one; the longer ones share one plain batch (the
 # plain version walks positions in Python, a quarter to half a second per
 # 100 positions whatever the batch holds)
-REPLAY_MAX_L = 2048
+REPLAY_MAX_L = 1024
 # the Viterbi kernel is also timed over the calls up to this padded query
 # length alone ("ms_prev_calls"): the calls that the time of the kernel
 # before its redesign covered (PERF.md's kernel table keeps that time)
 PREV_MAX_L = 4096
+# the e2e kernels are also timed over the calls all of whose problems have
+# at most this many bucketed cells ("ms_prev_problems"): the problems the
+# kernel took before it had a band class, all others then going to the host
+# aligner (PERF.md's kernel table keeps the time of that kernel)
+PREV_DEVICE_CELLS = 1 << 20
 
 # roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
 # non-tensor-core fp32 rate, which also stands in for the int32 rate of
@@ -88,13 +106,21 @@ def gpu_name_power() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+# cycles the card spins before a timed call starts (about 1.5 ms)
+SPIN_CYCLES = 3_000_000
+
+
 def timed(fn):
     """(result, device milliseconds) of one fn() call, timed with CUDA
-    events around it."""
+    events around it. The card spins first, so that the host has enqueued
+    a short call's kernels before the first event passes: the time is the
+    device's, not the wrapper's Python between the two events (some 0.05
+    ms a call, which times taken without the spin include)."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     out = fn()
     end.record()
@@ -171,10 +197,21 @@ def work_editdist(args):
     return float((len_a.double() * len_b.double()).sum()) * EDIT_OPS_PER_CELL
 
 
+def cells_e2e(args):
+    """DP cells of one call of either e2e class: the full matrix's, or (a
+    fifth tensor: the band slack) those of each problem's band that lie
+    inside its matrix's rows."""
+    import torch
+    from trgt_tpu_torch.kernels.e2e import band_geometry
+    len_p, len_t = args[2].double(), args[3].double()
+    if not isinstance(args[4], torch.Tensor):
+        return float(((len_p + 1) * (len_t + 1)).sum())
+    wb = band_geometry(len_p, len_t, args[4].double())[2]
+    return float(((len_p + 1) * torch.minimum(wb, len_t + 1)).sum())
+
+
 def work_e2e(args):
-    len_p, len_t = args[2], args[3]
-    cells = float(((len_p.double() + 1) * (len_t.double() + 1)).sum())
-    return cells * E2E_OPS_PER_CELL
+    return cells_e2e(args) * E2E_OPS_PER_CELL
 
 
 def bytes_e2e(args, out) -> int:
@@ -226,6 +263,7 @@ def kernel_table():
                          source="trgt_tpu_torch/csrc/editdist.cu",
                          replaces="trgt_tpu/kernels/editdist_pallas.py:41"),
         "e2e": dict(module=e2e, fn="e2e_scan", plain=e2e.e2e_scan_plain,
+                    band_fn="e2e_banded", band_plain=e2e.e2e_banded_plain,
                     work=work_e2e, io_bytes=bytes_e2e,
                     source="trgt_tpu_torch/csrc/e2e.cu",
                     replaces="trgt_tpu/kernels/e2e_device.py:40"),
@@ -458,6 +496,20 @@ def phase_editdist(n_pairs: int = 4000, seed: int = 13):
         if len(a) > len(b):
             a, b = b, a
         pairs.append((a, b))
+    # short sides on both sides of 32, 64 and 100 (the kernel keeps `a`
+    # four bytes a lane), long sides up to MAX_OPS / short and on both
+    # sides of one and two tiles of 128 columns; empty sides
+    for la in (31, 32, 33, 63, 64, 65, 99, 100, 101, 128):
+        for lb in (la, ed.MAX_OPS // la, 126, 127, 128, 129, 255, 256, 257):
+            if lb < la:
+                continue
+            a = random_dna(rng, la)
+            pairs.append((a, edit_few(rng, (a * (lb // la + 1))[:lb],
+                                      rng.randint(0, 6))[:lb]))
+            pairs.append((a, random_dna(rng, lb)))
+    pairs += [(b"", b""), (b"", random_dna(rng, 1)),
+              (b"", random_dna(rng, 100)), (b"", random_dna(rng, 10000))]
+    n_pairs = len(pairs)
     by_width = {}
     for a, b in pairs:
         by_width.setdefault(bucket(len(b), minimum=128), []).append((a, b))
@@ -472,24 +524,27 @@ def phase_editdist(n_pairs: int = 4000, seed: int = 13):
     if err != 0:
         raise AssertionError("edit-distance kernel disagrees with its "
                              "plain version")
-    got = ed.edit_distances_batch(pairs[:600], dev)
-    want = [edit_distance(a, b) for a, b in pairs[:600]]
+    some = pairs[:600] + pairs[4000:]
+    got = ed.edit_distances_batch(some, dev)
+    want = [edit_distance(a, b) for a, b in some]
     if got != want:
         raise AssertionError("edit_distances_batch disagrees with the host "
                              "twin align_host.edit_distance")
-    print("editdist: edit_distances_batch == align_host.edit_distance on "
-          "600 of the pairs")
+    print(f"editdist: edit_distances_batch == align_host.edit_distance on "
+          f"{len(some)} of the pairs")
 
 
-def phase_e2e_fuzz(n_pairs: int = 240, seed: int = 17):
-    import torch
-    from trgt_tpu_torch.kernels import e2e
-    from trgt_tpu_torch.kernels.align_host import align_end_to_end
-    from trgt_tpu_torch.kernels.bucket import bucket
-    phase(f"e2e: kernel vs plain and host aligner, {n_pairs} fuzzed pairs, "
-          f"two scorings")
-    rng = random.Random(seed)
-    dev = torch.device(DEVICE)
+def insert_block(rng, seq, n):
+    """seq with n random bases inserted at one place."""
+    at = rng.randrange(len(seq) + 1)
+    return seq[:at] + random_dna(rng, n) + seq[at:]
+
+
+def e2e_fuzz_pairs(rng, n_pairs):
+    """Pairs of 1..1000 bases (near-identical, repeat tracts, unrelated),
+    and texts one column to either side of every width at which the
+    full-matrix class changes strip (64, 128, 256 columns) or tile (512,
+    1024)."""
     pairs = []
     for i in range(n_pairs):
         n = int(1000 ** rng.random())                 # 1..1000, log-uniform
@@ -504,31 +559,137 @@ def phase_e2e_fuzz(n_pairs: int = 240, seed: int = 17):
         else:
             pairs.append((random_dna(rng, n),
                           random_dna(rng, int(1000 ** rng.random()))))
+    for edge in (64, 128, 256, 512, 1024):
+        for tlen in (edge - 2, edge - 1, edge, edge + 1):
+            t = random_dna(rng, tlen)
+            pairs.append((edit_few(rng, t[:rng.randint(1, 300)], 3) or t, t))
+            pairs.append((random_dna(rng, rng.randint(1, 300)), t))
+    return pairs
+
+
+def band_fuzz_calls(rng, dev):
+    """Calls of the band class: near-identical and unrelated pairs of
+    200..900 bases (100..300 against the widest bands), slack 32 and 1,
+    length differences that put the band's width one lane to either side
+    of each limit at which the kernel changes the lanes a thread owns or
+    the warps of a problem (128, 256, 512, 1024, 2048 and 4096 lanes),
+    certified and not, the bits rows as wide as the widest band and one
+    lane wider."""
+    import numpy as np
+    import torch
+    from trgt_tpu_torch.kernels import e2e
+    calls = []
+    for w, limits in ((32, (128, 256, 512, 1024, 2048, 4096)),
+                      (1, (40, 128, 1024))):
+        for limit in limits:
+            pairs = []
+            for wb in (limit - 1, limit, limit + 1, limit + 2):
+                dt = max(0, wb - 2 * w - 1)
+                p = random_dna(rng, rng.randint(200, 900) if limit < 2048
+                               else rng.randint(100, 300))
+                near = edit_few(rng, p, rng.randint(0, 6))
+                pairs.append((p, insert_block(rng, near,
+                                              dt + len(p) - len(near))))
+                pairs.append((pairs[-1][1], p))          # T < P
+                pairs.append((p, random_dna(rng, len(p) + dt)))
+            arrays = e2e.encode_problems(pairs)
+            ws = np.full(len(pairs), w, dtype=np.int32)
+            width = int(e2e.band_geometry(arrays[2], arrays[3], ws)[2].max())
+            args = [torch.from_numpy(x).to(dev) for x in arrays + (ws,)]
+            calls += [args + [width, 2, 5, 1], args + [width + 1, 1, 0, 1]]
+    return calls
+
+
+def big_e2e_pairs(rng):
+    """Pairs the band class exists for, up to 10 kb a side: near-identical;
+    with a block of up to 3 kb inserted on either side; unrelated ones,
+    which fail the first pass's certificate and are launched again. And
+    two for the host aligner: a band wider than MAX_BAND_WIDTH at once,
+    and one whose second pass would be. Returns (pairs, host-routed)."""
+    from trgt_tpu_torch.kernels import e2e
+    pairs = []
+    for n in (2000, 3500, 5000, 7000, 10000, 10000):
+        p = random_dna(rng, n)
+        if n == 5000:
+            p = (random_dna(rng, 7) * n)[:n]           # a repeat tract: ties
+        pairs.append((p, edit_few(rng, p, rng.randint(1, 12))))
+    for n, block in ((3000, 100), (6000, 700), (10000, 3000), (7000, 2000)):
+        p = random_dna(rng, n - block)
+        t = insert_block(rng, edit_few(rng, p, 6), block)
+        pairs += [(p, t), (t, p)]
+    pairs += [(random_dna(rng, 3000), random_dna(rng, 3100)),
+              (random_dna(rng, 2500), random_dna(rng, 2400)),
+              (random_dna(rng, 6000), random_dna(rng, 6000))]
+    wide = e2e.MAX_BAND_WIDTH
+    pairs += [(random_dna(rng, 300), random_dna(rng, 300 + wide)),
+              (random_dna(rng, 1000), random_dna(rng, 1000 + wide - 70))]
+    return pairs, 2
+
+
+def phase_e2e_fuzz(n_pairs: int = 240, seed: int = 17):
+    import torch
+    from trgt_tpu_torch.kernels import e2e
+    from trgt_tpu_torch.kernels.align_host import align_end_to_end
+    from trgt_tpu_torch.kernels.bucket import bucket
+    phase(f"e2e: both kernel classes vs plain and host aligner, two scorings")
+    rng = random.Random(seed)
+    dev = torch.device(DEVICE)
+    pairs = e2e_fuzz_pairs(rng, n_pairs)
     by_key = {}
     for p, t in pairs:
         by_key.setdefault((bucket(len(p)), bucket(len(t))),
                           []).append((p, t))
+    band_calls = band_fuzz_calls(rng, dev)
+    err, ms, plain_ms = compare(e2e.e2e_banded, e2e.e2e_banded_plain,
+                                band_calls)
+    sure = sum(int(e2e.e2e_banded(*args)[4].sum()) for args in band_calls)
+    n_band = sum(args[0].shape[0] for args in band_calls)
+    print(f"e2e band fuzz: {n_band} problems in {len(band_calls)} calls, "
+          f"{sure} certified, score/bits/runs/certificate max_abs_err {err} "
+          f"(tolerance 0: exact), kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms")
+    if err != 0 or not 0 < sure < n_band:
+        raise AssertionError("banded e2e kernel disagrees with its plain "
+                             "version, or the fuzz lacks certified or "
+                             "uncertified problems")
+    big, n_host = big_e2e_pairs(rng)
     for mism, gapo, gape in ((2, 5, 1), (1, 0, 1)):
         calls = [[torch.from_numpy(x).to(dev)
                   for x in e2e.encode_problems(items)] + [mism, gapo, gape]
                  for _key, items in sorted(by_key.items())]
         err, ms, plain_ms = compare(e2e.e2e_scan, e2e.e2e_scan_plain, calls)
-        print(f"e2e fuzz ({mism},{gapo},{gape}): {n_pairs} pairs in "
-              f"{len(calls)} length groups, score/bits/runs max_abs_err "
-              f"{err} (tolerance 0: exact), kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms")
+        print(f"e2e full-matrix fuzz ({mism},{gapo},{gape}): {len(pairs)} "
+              f"pairs in {len(calls)} length groups, score/bits/runs "
+              f"max_abs_err {err} (tolerance 0: exact), kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
         if err != 0:
             raise AssertionError("e2e kernel disagrees with its plain "
                                  "version")
-        got = e2e.e2e_align_batch(pairs, mism, gapo, gape, dev)
-        want = [align_end_to_end(p, t, mism, gapo, gape) for p, t in pairs]
+        e2e.routed.clear()
+        t0 = time.perf_counter()
+        got = e2e.e2e_align_batch(pairs + big, mism, gapo, gape, dev)
+        t_dev = time.perf_counter() - t0
+        want = [align_end_to_end(p, t, mism, gapo, gape)
+                for p, t in pairs + big]
         if got != want:
             bad = next(i for i, (g, w) in enumerate(zip(got, want))
                        if g != w)
+            p, t = (pairs + big)[bad]
             raise AssertionError(f"e2e CIGAR differs from the host aligner "
-                                 f"on pair {bad}: {pairs[bad]}")
+                                 f"on pair {bad} ({len(p)} x {len(t)})")
         print(f"e2e fuzz ({mism},{gapo},{gape}): scores and CIGARs == "
-              f"align_host.align_end_to_end on all {n_pairs} pairs")
+              f"align_host.align_end_to_end on all {len(got)} pairs, "
+              f"{len(big)} of them up to 10 kb a side; e2e_align_batch "
+              f"{t_dev:.3f} s, the host aligner one by one "
+              f"{time.perf_counter() - t0 - t_dev:.3f} s; routed "
+              f"{json.dumps(dict(e2e.routed))}")
+        # with free gap opens a short pattern finds its bases in a long
+        # unrelated text, and the second of the two certifies at once
+        n_want = (n_host,) if gapo else (n_host - 1, n_host)
+        if e2e.routed["host_problems"] not in n_want or \
+                e2e.routed["band_relaunches"] < 3:
+            raise AssertionError("the fuzz did not drive the relaunches and "
+                                 "the caps it was built for")
 
 
 class Capture:
@@ -612,14 +773,23 @@ def drive_path(dsdir, reads, preset, expect):
     # own tables
     caps["viterbi_batches"] = Capture(table["viterbi"]["module"],
                                       "prepare_batch")
+    caps["e2e_band"] = Capture(table["e2e"]["module"],
+                               table["e2e"]["band_fn"])
     with contextlib.ExitStack() as stack:
         for cap in caps.values():
             stack.enter_context(cap)
         for k in table.values():
             k["module"].launches = 0
+        table["e2e"]["module"].band_launches = 0
         cuda_prefix = run_genotype(dsdir, reads, DEVICE, preset)
         launches = {name: k["module"].launches for name, k in table.items()}
-    print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}")
+        band_launches = table["e2e"]["module"].band_launches
+    print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}"
+          f" (e2e: {band_launches} of them the band class's)")
+    if band_launches != len(caps["e2e_band"].calls) or \
+            launches["e2e"] - band_launches != len(caps["e2e"].calls):
+        raise AssertionError("the captured e2e calls do not pair with the "
+                             "launch counts")
     host_prefix = run_genotype(dsdir, reads, "host", preset)
     cuda_vcf, cuda_bam = records(cuda_prefix)
     host_vcf, host_bam = records(host_prefix)
@@ -635,6 +805,7 @@ def drive_path(dsdir, reads, preset, expect):
         if launches[name] <= 0:
             raise AssertionError(f"the {name} kernel was never launched on "
                                  f"the {preset} path")
+    launches["e2e_band"] = band_launches
     return launches, caps
 
 
@@ -694,16 +865,112 @@ def hold_rows(kernel, plain, calls, batches):
     return err, plain_ms
 
 
+# bytes of direction bits one batch of the plain banded e2e may hold
+PLAIN_BAND_BYTES = 1 << 30
+
+
+def hold_band(kernel, plain, calls):
+    """The band kernel's output on each of `calls` (bits kept) against the
+    plain version run over all their problems in a few batches, longest
+    patterns together: problems do not act on one another, so a problem's
+    outputs are those of its own call, padded with 0 to the batch's rows
+    and lanes. Returns (max_abs_err, plain ms, problems, batches,
+    uncertified problems)."""
+    import torch
+    problems = []                  # (call, row, len_p, call's width)
+    for c, args in enumerate(calls):
+        problems += [(c, b, lp, args[5])
+                     for b, lp in enumerate(args[2].tolist())]
+    problems.sort(key=lambda x: (x[2], x[3]))
+    batches, cur = [], []
+    for prob in problems:
+        rows = prob[2] + 1
+        width = max([prob[3]] + [q[3] for q in cur])
+        if cur and (len(cur) + 1) * rows * width > PLAIN_BAND_BYTES:
+            batches.append(cur)
+            cur = []
+        cur.append(prob)
+    if cur:
+        batches.append(cur)
+    got = [kernel(*args[:-1]) for args in calls]         # keep_bits
+    err, plain_ms, uncertified = 0, 0.0, 0
+    scoring = calls[0][6:9]
+    for batch in batches:
+        P = max(calls[c][0].shape[1] for c, _b, _lp, _w in batch)
+        T = max(calls[c][1].shape[1] for c, _b, _lp, _w in batch)
+        width = max(w for _c, _b, _lp, w in batch)
+        dev = calls[0][0].device
+        pat = torch.zeros((len(batch), P), dtype=torch.uint8, device=dev)
+        txt = torch.zeros((len(batch), T), dtype=torch.uint8, device=dev)
+        for r, (c, b, _lp, _w) in enumerate(batch):
+            pat[r, :calls[c][0].shape[1]] = calls[c][0][b]
+            txt[r, :calls[c][1].shape[1]] = calls[c][1][b]
+        pick = lambda k: torch.stack([calls[c][k][b]
+                                      for c, b, _lp, _w in batch])
+        want, t = timed(lambda: plain(pat, txt, pick(2), pick(3), pick(4),
+                                      width, *scoring))
+        plain_ms += t
+        uncertified += int((~want[4]).sum())
+        for r, (c, b, lp, w) in enumerate(batch):
+            score, bits, runs, n_runs, certified = (x[b] for x in got[c])
+            n = int(n_runs)
+            err = max(err, max_abs_err(
+                (score, n_runs, certified, runs[:n], bits[:lp + 1]),
+                (want[0][r], want[3][r], want[4][r], want[2][r, :n],
+                 want[1][r, :lp + 1, :w])))
+            if bool(want[1][r, :, w:].any()) or bool(want[2][r, n:].any()) \
+                    or bool(runs[n:].any()) or bool(bits[lp + 1:].any()):
+                raise AssertionError("a band problem's outputs are not "
+                                     "empty beyond its own rows and lanes")
+    return err, plain_ms, len(problems), len(batches), uncertified
+
+
+def replay_e2e(k, full_calls, band_calls):
+    """Both e2e classes on a path's calls: each call timed as the path
+    made it (no bits kept) and held with its bits kept, the full-matrix
+    calls one by one, the band calls through `hold_band`. Returns
+    (max_abs_err, kernel ms, plain ms, numbers by class)."""
+    e2e = k["module"]
+    if any(scoring != band_calls[0][6:9]
+           for scoring in (a[6:9] for a in band_calls)):
+        raise AssertionError("band calls of one path differ in scoring")
+    from trgt_tpu_torch.kernels.bucket import bucket
+
+    def was_kernels(args):
+        return all((bucket(lp) + 1) * (bucket(lt) + 1) <= PREV_DEVICE_CELLS
+                   for lp, lt in zip(args[2].tolist(), args[3].tolist()))
+
+    full_ms = kernel_ms(e2e.e2e_scan, full_calls)
+    band_ms = kernel_ms(e2e.e2e_banded, band_calls)
+    prev_band = [a for a in band_calls if was_kernels(a)]
+    prev_ms = full_ms + kernel_ms(e2e.e2e_banded, prev_band)
+    held = [args[:-1] for args in full_calls]
+    err, _, plain_ms = compare(e2e.e2e_scan, k["plain"], held)
+    n_prob = n_batches = uncertified = 0
+    if band_calls:
+        band_err, band_plain_ms, n_prob, n_batches, uncertified = hold_band(
+            e2e.e2e_banded, k["band_plain"], band_calls)
+        err, plain_ms = max(err, band_err), plain_ms + band_plain_ms
+    return err, full_ms + band_ms, plain_ms, {
+        "full_calls": len(full_calls), "full_ms": full_ms,
+        "band_calls": len(band_calls), "band_ms": band_ms,
+        "band_problems": n_prob, "band_plain_batches": n_batches,
+        "band_uncertified": uncertified, "ms_prev_problems": prev_ms,
+        "prev_band_calls": len(prev_band),
+        "prev_band_problems": sum(a[0].shape[0] for a in prev_band)}
+
+
 def replay(path, table, caps):
     """Every kernel launched on `path` against its plain version on the
     inputs the cuda run gave it; {kernel name: numbers of this replay}.
     Time and bound cover every call, and every call is held: the Viterbi
     calls over REPLAY_MAX_L through `hold_rows`, all else call by call."""
+    import torch
     phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
     out = {}
     for name, k in table.items():
         calls = caps[name].calls
-        if not calls:
+        if not calls and not (name == "e2e" and caps["e2e_band"].calls):
             continue
         kernel = getattr(k["module"], k["fn"])
         t0 = time.perf_counter()
@@ -729,17 +996,45 @@ def replay(path, table, caps):
             extra = {"held_in_one_plain_batch": len(rest),
                      "ms_prev_calls": kernel_ms(kernel, prev_calls),
                      "prev_calls": len(prev_calls)}
+        elif name == "e2e":
+            err, ms, plain_ms, extra = replay_e2e(k, calls,
+                                                  caps["e2e_band"].calls)
+            calls = calls + caps["e2e_band"].calls
+            kernel = lambda *args: getattr(
+                k["module"], k["band_fn" if isinstance(args[4], torch.Tensor)
+                               else "fn"])(*args)
         else:
             err, ms, plain_ms = compare(kernel, k["plain"], calls)
         bound, bound_by, n_bytes, n_ops = bound_ms(kernel, k["work"], calls,
                                                    k.get("io_bytes"))
+        if name == "e2e":
+            # the bound of each class's calls alone
+            n_full = extra["full_calls"]
+            extra["full_bound_ms"] = bound_ms(
+                kernel, k["work"], calls[:n_full], k["io_bytes"])[0]
+            extra["band_bound_ms"] = bound_ms(
+                kernel, k["work"], calls[n_full:], k["io_bytes"])[0]
         print(f"{name}: {len(calls)} {path}-path calls timed and held "
               f"against the plain version in "
               f"{time.perf_counter() - t0:.1f} s: max_abs_err {err} "
               f"(tolerance 0), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound:.6f} ms by {bound_by} ({n_bytes} bytes, "
               f"{n_ops:.0f} operations)", flush=True)
-        if extra:
+        if name == "e2e":
+            print(f"e2e: {extra['full_calls']} full-matrix calls "
+                  f"{extra['full_ms']:.3f} ms (bound "
+                  f"{extra['full_bound_ms']:.6f}), {extra['band_calls']} "
+                  f"band calls {extra['band_ms']:.3f} ms (bound "
+                  f"{extra['band_bound_ms']:.6f}), their "
+                  f"{extra['band_problems']} problems held against "
+                  f"{extra['band_plain_batches']} plain batches, "
+                  f"{extra['band_uncertified']} of them uncertified; kernel "
+                  f"{extra['ms_prev_problems']:.3f} ms over the full-matrix "
+                  f"calls and the {extra['prev_band_calls']} band calls "
+                  f"({extra['prev_band_problems']} problems) that hold only "
+                  f"problems up to {PREV_DEVICE_CELLS} bucketed cells",
+                  flush=True)
+        elif extra:
             print(f"viterbi: the {extra['held_in_one_plain_batch']} calls "
                   f"over {REPLAY_MAX_L} positions held row by row against "
                   f"one plain batch of their rows, none left unheld; kernel "
@@ -784,8 +1079,12 @@ def phase_paths():
                  **targeted[name]}
         if "also_replaces" in k:
             entry["also_replaces"] = k["also_replaces"]
+        if name == "e2e":
+            entry["band_launches"] = launches["e2e_band"]
         if name in wgs:
             entry["wgs_path"] = {"launches": wgs_launches[name], **wgs[name]}
+            if name == "e2e":
+                entry["wgs_path"]["band_launches"] = wgs_launches["e2e_band"]
         kernels.append(entry)
     return kernels
 

@@ -43,8 +43,12 @@ _SIGNATURES = {
                      _P, _P],
     "trgt_viterbi_slice_bytes": [_I, _I, _I, _I],
     "trgt_edit_distances": [_P, _I, _P, _I, _P, _P, _P, _I, _P],
-    "trgt_e2e_scan": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, _P],
+    "trgt_e2e_scan": [_P, _I, _P, _I, _P, _P, _P, ctypes.c_size_t, _P, _P,
+                      _P, _I, _I, _I, _I, _P],
+    "trgt_e2e_strip": [_I],
+    "trgt_e2e_band_half": [_I],
+    "trgt_e2e_band": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _P],
 }
 
 

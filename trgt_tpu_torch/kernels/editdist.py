@@ -3,7 +3,8 @@ distance matrix).
 
 Counterpart of `trgt_tpu.kernels.editdist.edit_distances_batch`, whose
 TPU kernel is `trgt_tpu/kernels/editdist_pallas.py` `_edit_kernel`. The
-CUDA kernel is `csrc/editdist.cu`.
+CUDA kernel is `csrc/editdist.cu`: a warp per pair walks the rows of the
+short side, the long side in strips of columns across its lanes.
 
 Layers:
   edit_distances_batch  (bytes, bytes) pairs in, [int] out; puts the
@@ -31,8 +32,8 @@ launches = 0
 # len_a * len_b <= MAX_OPS and uses the |length difference| bound above
 # (ref: genotype_cluster.rs:231)
 MAX_OPS = 10000
-# rows the kernel keeps per pair in shared memory (csrc/editdist.cu kMaxA);
-# MAX_OPS bounds the shorter side of a pair to 100
+# bytes of the short side the kernel takes, four a lane (csrc/editdist.cu
+# kMaxA); MAX_OPS bounds the shorter side of a pair to 100
 MAX_A = 128
 _INF = 1 << 40
 
