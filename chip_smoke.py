@@ -43,6 +43,23 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      path         to 0.85, `--preset targeted`, cuda vs host: identical
                   records, all four kernels launched; then the same
                   replay of this run's inputs
+  9. CRAM input   the longest allele's locus and seven with read errors,
+                  their reads written once as BAM and once as CRAM by the
+                  port's CramWriter; `genotype --preset wgs --device cuda`
+                  of the CRAM launches flank, Viterbi and e2e (counts set
+                  to 0 just before, read just after), and its VCF records
+                  equal those of the BAM under --device cuda and host, its
+                  spanning BAM that of the CRAM under --device host
+ 10. commands     on the outputs of the cuda runs of 7 and 8: `merge
+                  --force-samples` of both VCFs to .vcf.gz and .bcf (each
+                  sample column equals its input's FORMAT fields, the BCF
+                  read back equals the VCF); `plot` of the longest allele's
+                  locus and a two-motif locus, allele and waterfall, .svg
+                  (parsed) and .pdf; `validate` of the catalog (96 pass)
+ 11. merge at     8 synthetic single-sample VCFs of 10,000 sites (shared
+     scale        and private sites, alleles per sample) merged by `python
+                  -m trgt_tpu_torch merge` to .vcf.gz and .bcf: seconds,
+                  peak RSS, record count == distinct sites, BCF == VCF
 Both replays time the kernel and reckon its bound over every call of the
 path, and hold every call against the plain version. The plain banded e2e
 walks pattern rows in Python, so the problems of all band calls of a path
@@ -55,11 +72,14 @@ it runs one by one; the rows of all longer calls it runs as one batch,
 against which each call's kernel output is held row by row. The
 second-to-last line is
 {"kernels": [...]}: one entry per kernel with the targeted path's numbers
-and, under "wgs_path", the same numbers of the wgs path. The last line is
+and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
+the launches of phase 9. The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
 import contextlib
+import importlib.util
+import io
 import json
 import os
 import random
@@ -281,7 +301,6 @@ def phase_env():
     nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     print("nvcc:", nvcc.strip().splitlines()[-1])
-    import importlib.util
     triton = importlib.util.find_spec("triton") is not None
     print(f"triton installed: {triton}")
     from trgt_tpu_torch.io import native
@@ -732,16 +751,18 @@ def records(prefix: str):
     return vcf, data[off:]
 
 
-def run_genotype(dsdir: str, reads: str, device: str, preset: str):
+def run_genotype(dsdir: str, reads: str, device: str, preset: str,
+                 repeats: str = "repeats.bed", name: str = "",
+                 n_loci: int = N_LOCI):
     from trgt_tpu_torch.cli import main
     from trgt_tpu_torch.engine import pipeline
     from trgt_tpu_torch.kernels import e2e
-    prefix = os.path.join(dsdir, f"smoke_{preset}_{device}")
+    prefix = os.path.join(dsdir, name or f"smoke_{preset}_{device}")
     pipeline.STAGE_TIMES.clear()
     e2e.routed.clear()
     t0 = time.perf_counter()
     rc = main(["genotype", "--genome", os.path.join(dsdir, "ref.fasta"),
-               "--repeats", os.path.join(dsdir, "repeats.bed"),
+               "--repeats", os.path.join(dsdir, repeats),
                "--reads", os.path.join(dsdir, reads), "--preset", preset,
                "--output-prefix", prefix, "--device", device])
     if device == "cuda":
@@ -752,9 +773,9 @@ def run_genotype(dsdir: str, reads: str, device: str, preset: str):
         raise RuntimeError(f"genotype --preset {preset} --device {device} "
                            f"exited {rc}")
     stages = {k: round(v, 3) for k, v in pipeline.STAGE_TIMES.items()}
-    print(f"genotype --preset {preset} --device {device}: {N_LOCI} loci in "
-          f"{elapsed:.3f} s = {N_LOCI / elapsed:.3f} loci/s; stages (s) "
-          f"{json.dumps(stages)}", flush=True)
+    print(f"genotype --preset {preset} --device {device} --reads {reads}: "
+          f"{n_loci} loci in {elapsed:.3f} s = {n_loci / elapsed:.3f} "
+          f"loci/s; stages (s) {json.dumps(stages)}", flush=True)
     if device == "cuda":
         print(f"consensus alignments routed in this run (host_seconds: "
               f"wall time of the host-routed ones, on a thread pool): "
@@ -1086,7 +1107,377 @@ def phase_paths():
             if name == "e2e":
                 entry["wgs_path"]["band_launches"] = wgs_launches["e2e_band"]
         kernels.append(entry)
-    return kernels
+    return kernels, dsdir
+
+
+# CRAM input: the longest allele's locus and seven with read errors
+CRAM_LOCI = 8
+
+
+def pick_cram_loci(dsdir: str):
+    """The locus of the longest allele and seven whose reads carry errors
+    (so that spans miss the exact path), spread over allele lengths."""
+    with open(os.path.join(dsdir, "truth.json")) as fh:
+        truth = json.load(fh)
+    by_len = sorted(truth, key=lambda k: (max(truth[k]["alleles"]), k))
+    noisy = [k for k in by_len[:-1] if truth[k]["error_rate"] > 0]
+    step = len(noisy) / (CRAM_LOCI - 1)
+    return [by_len[-1]] + [noisy[int(i * step)] for i in range(CRAM_LOCI - 1)]
+
+
+def write_cram_subset(dsdir: str, ids):
+    """The catalog lines and reads of the loci `ids`: the reads once as
+    an indexed BAM and once as a CRAM by the port's CramWriter. Returns
+    (catalog, BAM, CRAM, reads, bases, CRAM-writing seconds)."""
+    from trgt_tpu_torch.io.bam import BamReader
+    from trgt_tpu_torch.io.bam_write import BamWriter
+    from trgt_tpu_torch.io.cram_write import CramWriter
+    ids = set(ids)
+    with open(os.path.join(dsdir, "repeats.bed")) as fh:
+        lines = [line for line in fh
+                 if line.split("\t")[3].split(";")[0][3:] in ids]
+    with open(os.path.join(dsdir, "cram_subset.bed"), "w") as fh:
+        fh.write("".join(lines))
+    src = BamReader(os.path.join(dsdir, "reads.bam"))
+    bam = BamWriter(os.path.join(dsdir, "cram_subset.bam"), src.header.text,
+                    src.header.references, build_index=True)
+    t0 = time.perf_counter()
+    cram = CramWriter(os.path.join(dsdir, "cram_subset.cram"),
+                      src.header.text, src.header.references,
+                      os.path.join(dsdir, "ref.fasta"))
+    t_cram = time.perf_counter() - t0
+    n_reads = n_bases = 0
+    for rec in src:
+        if rec.qname.rsplit("_read", 1)[0] not in ids:
+            continue
+        aux = [(tag, "f" if isinstance(v, float) else "i"
+                if isinstance(v, int) else "B" if isinstance(v, tuple)
+                else "Z", v) for tag, v in rec.aux().items()]
+        args = (rec.qname, rec.flag, rec.ref_id, rec.pos, rec.mapq,
+                rec.cigar, rec.seq, rec.qual, aux)
+        bam.write_record(*args)
+        t0 = time.perf_counter()
+        cram.write_record(*args)
+        t_cram += time.perf_counter() - t0
+        n_reads += 1
+        n_bases += len(rec.seq)
+    bam.close()
+    t0 = time.perf_counter()
+    cram.close()
+    t_cram += time.perf_counter() - t0
+    if len(lines) != len(ids) or not n_reads:
+        raise AssertionError("the CRAM subset lacks loci or reads")
+    return ("cram_subset.bed", "cram_subset.bam", "cram_subset.cram",
+            n_reads, n_bases, t_cram)
+
+
+def phase_cram(dsdir: str):
+    """`genotype --preset wgs --device cuda` of CRAM input: flank, Viterbi
+    and e2e launched; VCF records equal those of the same reads from a
+    BAM under --device cuda and --device host, and the CRAM's cuda run
+    equals its host run, spanning BAM included. Returns the launches."""
+    ids = pick_cram_loci(dsdir)
+    phase(f"CRAM input: {CRAM_LOCI} bench{N_LOCI} loci ({ids[0]}, the "
+          f"longest allele, and seven with read errors), --device cuda vs "
+          f"BAM")
+    bed, bam, cram, n_reads, n_bases, t_cram = write_cram_subset(dsdir, ids)
+    print(f"CramWriter: {n_reads} reads, {n_bases} bases of loci "
+          f"{','.join(ids)} in {t_cram:.3f} s, "
+          f"{os.path.getsize(os.path.join(dsdir, cram))} bytes "
+          f"(the same reads as BAM: "
+          f"{os.path.getsize(os.path.join(dsdir, bam))} bytes)")
+    table = kernel_table()
+    for k in table.values():
+        k["module"].launches = 0
+    runs = {"cram_cuda": run_genotype(dsdir, cram, DEVICE, "wgs", bed,
+                                      "smoke_cram_cuda", CRAM_LOCI)}
+    launches = {name: k["module"].launches for name, k in table.items()}
+    print(f"kernel launches in the CRAM cuda run: {json.dumps(launches)}")
+    for name in ("flank", "viterbi", "e2e"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the {name} kernel was never launched on "
+                                 f"CRAM input")
+    for name, reads, device in (("bam_cuda", bam, DEVICE),
+                                ("bam_host", bam, "host"),
+                                ("cram_host", cram, "host")):
+        runs[name] = run_genotype(dsdir, reads, device, "wgs", bed,
+                                  f"smoke_{name}", CRAM_LOCI)
+    got = {name: records(prefix) for name, prefix in runs.items()}
+    n_rec = sum(1 for line in got["cram_cuda"][0].splitlines()
+                if not line.startswith("#"))
+    same_vcf = {name: got[name][0] == got["cram_cuda"][0] for name in got}
+    print(f"CRAM records: {n_rec} VCF; VCF equal to {json.dumps(same_vcf)}; "
+          f"spanning BAM of the CRAM cuda run equal to its host run "
+          f"{got['cram_cuda'][1] == got['cram_host'][1]}")
+    if n_rec != CRAM_LOCI or not all(same_vcf.values()) or \
+            got["cram_cuda"][1] != got["cram_host"][1]:
+        raise AssertionError("genotype of CRAM input differs from the BAM "
+                             "runs or from its host run")
+    return launches
+
+
+FLOAT_FIELDS = ("AP", "AM")
+
+
+def record_key(rec):
+    """A merged VcfRecord as a comparable tuple: BCF keeps AP and AM as
+    float32 and prints them shorter, so those compare as float32."""
+    def f32(tok):
+        if tok in (".", ""):
+            return tok
+        return struct.unpack("<f", struct.pack("<f", float(tok)))[0]
+    samples = [tuple((k, tuple(f32(t) for t in v.split(","))
+                      if k in FLOAT_FIELDS else v) for k, v in d.items())
+               for d in rec.samples]
+    return (rec.chrom, rec.pos, rec.id, tuple(rec.alleles), rec.info,
+            tuple(rec.fmt_keys), tuple(samples))
+
+
+def read_records(path: str):
+    from trgt_tpu_torch.merge.vcf_text import VcfTextReader
+    reader = VcfTextReader(path)
+    return reader, [record_key(rec) for contig, _len in reader.contigs()
+                    for rec in reader.records(contig)]
+
+
+def check_bcf_equals_vcf(vcf: str, bcf: str) -> int:
+    """The BCF read back through the port's VcfTextReader equals the VCF:
+    samples, header lines (but ##trgtCommand=, each run's own arguments)
+    and every record. Returns the record count."""
+    vcf_reader, vcf_recs = read_records(vcf)
+    bcf_reader, bcf_recs = read_records(bcf)
+
+    def header(reader):
+        return [line for line in reader.header_lines
+                if not line.startswith("##trgtCommand=")]
+    if vcf_reader.samples != bcf_reader.samples or \
+            header(vcf_reader) != header(bcf_reader) or vcf_recs != bcf_recs:
+        raise AssertionError(f"{bcf} read back differs from {vcf}")
+    return len(vcf_recs)
+
+
+def cli(argv):
+    """The port's CLI in this process; raises unless it exits 0."""
+    from trgt_tpu_torch.cli import main
+    rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"trgt_tpu_torch {' '.join(argv[:1])} exited "
+                           f"{rc}")
+
+
+def check_merged_columns(merged: str, inputs) -> int:
+    """Sample k of every merged record carries input k's FORMAT fields,
+    its GT naming the same allele sequences. Returns the record count."""
+    from trgt_tpu_torch.merge.vcf_text import VcfTextReader
+    reader = VcfTextReader(merged)
+    ins = [VcfTextReader(p) for p in inputs]
+    n = 0
+    for contig, _len in reader.contigs():
+        by_pos = [{r.pos: r for r in x.records(contig)} for x in ins]
+        for rec in reader.records(contig):
+            n += 1
+            for k, sites in enumerate(by_pos):
+                src, got = sites[rec.pos], rec.samples[k]
+                want = src.samples[0]
+                if {f: v for f, v in got.items() if f != "GT"} != \
+                        {f: v for f, v in want.items() if f != "GT"}:
+                    raise AssertionError(f"sample {k} of {contig}:"
+                                         f"{rec.pos + 1} differs from its "
+                                         f"input")
+                named = [None if i == "." else rec.alleles[int(i)]
+                         for i in got["GT"].replace("|", "/").split("/")]
+                own = [None if i == "." else src.alleles[int(i)]
+                       for i in want["GT"].replace("|", "/").split("/")]
+                if named != own:
+                    raise AssertionError(f"GT of sample {k} at {contig}:"
+                                         f"{rec.pos + 1} names other alleles")
+    return n
+
+
+PLOT_TWO_MOTIF = "HET73"
+
+
+def phase_commands(dsdir: str):
+    """merge, plot and validate through the port's CLI on the outputs of
+    the --device cuda runs of phases 7 and 8."""
+    phase("commands on the cuda outputs: merge, plot, validate")
+    print(f"PIL importable: "
+          f"{importlib.util.find_spec('PIL') is not None} (PNG is held in "
+          f"the CPU tests only)")
+    inputs = [os.path.join(dsdir, f"smoke_{preset}_{DEVICE}.vcf.gz")
+              for preset in ("wgs", "targeted")]
+    sizes = {}
+    for ext in ("vcf.gz", "bcf"):
+        out = os.path.join(dsdir, f"smoke_merged.{ext}")
+        t0 = time.perf_counter()
+        cli(["merge", "--vcf", *inputs, "--force-samples", "-o", out])
+        sizes[ext] = (os.path.getsize(out), time.perf_counter() - t0)
+    vcf, bcf = (os.path.join(dsdir, f"smoke_merged.{ext}")
+                for ext in ("vcf.gz", "bcf"))
+    n_sites = check_merged_columns(vcf, inputs)
+    n_bcf = check_bcf_equals_vcf(vcf, bcf)
+    print(f"merge --force-samples of the wgs and targeted cuda VCFs: "
+          f"{n_sites} sites, each sample column == its input's FORMAT "
+          f"fields; .vcf.gz {sizes['vcf.gz'][0]} bytes in "
+          f"{sizes['vcf.gz'][1]:.3f} s, .bcf {sizes['bcf'][0]} bytes in "
+          f"{sizes['bcf'][1]:.3f} s, read back == the VCF ({n_bcf} records)")
+    if n_sites != N_LOCI:
+        raise AssertionError(f"{n_sites} merged sites, expected {N_LOCI}")
+
+    ids = pick_cram_loci(dsdir)[0], PLOT_TWO_MOTIF
+    prefix = os.path.join(dsdir, f"smoke_wgs_{DEVICE}")
+    for tr_id in ids:
+        for plot_type in ("allele", "waterfall"):
+            for ext in ("svg", "pdf"):
+                out = os.path.join(dsdir, f"smoke_{tr_id}_{plot_type}.{ext}")
+                t0 = time.perf_counter()
+                cli(["plot", "--genome", os.path.join(dsdir, "ref.fasta"),
+                     "--repeats", os.path.join(dsdir, "repeats.bed"),
+                     "--vcf", prefix + ".vcf.gz",
+                     "--spanning-reads", prefix + ".spanning.bam",
+                     "--repeat-id", tr_id, "--image", out,
+                     "--plot-type", plot_type])
+                seconds = time.perf_counter() - t0
+                with open(out, "rb") as fh:
+                    data = fh.read()
+                if ext == "svg":
+                    import xml.etree.ElementTree as ET
+                    ET.fromstring(data)
+                elif not data.startswith(b"%PDF-"):
+                    raise AssertionError(f"{out} is not a PDF")
+                print(f"plot {tr_id} {plot_type} .{ext}: {len(data)} bytes "
+                      f"in {seconds:.3f} s")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli(["validate", "--genome", os.path.join(dsdir, "ref.fasta"),
+             "--repeats", os.path.join(dsdir, "repeats.bed")])
+    last = out.getvalue().splitlines()[-1]
+    print(f"validate bench{N_LOCI} in {time.perf_counter() - t0:.3f} s: "
+          f"{last}")
+    if last != f"Validation successful. Loci pass = {N_LOCI}":
+        raise AssertionError("validate did not pass every bench96 locus")
+
+
+# merge at scale: samples x sites a sample
+MERGE_SAMPLES = 8
+MERGE_SITES = 10_000
+MERGE_MOTIFS = ("CAG", "AT", "GGC", "AAAG", "T", "CCATTTAGG", "AATGG")
+
+
+def write_cohort(dsdir: str, header_vcf: str, seed: int = 23):
+    """MERGE_SAMPLES single-sample VCFs of MERGE_SITES sites each (BGZF,
+    the port's BgzfWriter), under the header of `header_vcf`: three fifths
+    of the sites shared by all samples, the rest drawn per sample from a
+    pool; REF fixed by site, ALT alleles, genotype and FORMAT values per
+    sample. Returns (paths, number of distinct sites)."""
+    from trgt_tpu_torch.io.bgzf import BgzfReader, BgzfWriter
+    header = [line for line in BgzfReader(header_vcf).read_all().decode()
+              .splitlines() if line.startswith("#")]
+    contig = next(line for line in header if line.startswith("##contig="))
+    chrom = contig.split("ID=")[1].split(",")[0]
+    length = int(contig.split("length=")[1].rstrip(">"))
+    rng = random.Random(seed)
+    n_shared = MERGE_SITES * 3 // 5
+    n_pool = MERGE_SITES * 7 // 5
+    step = length // (n_pool + 1)
+    sites = []
+    for i in range(n_pool):
+        motif = MERGE_MOTIFS[i % len(MERGE_MOTIFS)]
+        sites.append((step * (i + 1), motif,
+                      rng.choice("ACGT") + motif * (3 + i % 9)))
+    shared, pool = sites[:n_shared], sites[n_shared:]
+    paths, used = [], set()
+    for s in range(MERGE_SAMPLES):
+        mine = sorted(shared + rng.sample(pool, MERGE_SITES - n_shared))
+        used.update(pos for pos, _m, _r in mine)
+        lines = header[:-1] + [header[-1].rsplit("\t", 1)[0]
+                               + f"\tsample{s}"]
+        for pos, motif, ref in mine:
+            copies = sorted({rng.randint(1, 14) for _ in range(2)})
+            alts = [ref[0] + motif * c for c in copies]
+            alts = [a for a in alts if a != ref]
+            if not alts:
+                gt, alleles = "0/0", [ref, ref]
+            elif len(alts) == 1:
+                gt = rng.choice(["0/1", "1/1"])
+                alleles = [ref if g == "0" else alts[0]
+                           for g in gt.split("/")]
+            else:
+                gt, alleles = "1/2", alts
+            lens = [len(a) - 1 for a in alleles]
+            am = rng.choice([".,.", f"{rng.random():.2f},"
+                                    f"{rng.random():.2f}"])
+            lines.append(
+                f"{chrom}\t{pos}\t.\t{ref}\t{','.join(alts) or '.'}\t.\t.\t"
+                f"TRID=M{pos};END={pos + len(ref) - 1};MOTIFS={motif};"
+                f"STRUC=<TR>\tGT:AL:ALLR:SD:MC:MS:AP:AM\t{gt}:"
+                f"{lens[0]},{lens[1]}:{lens[0]}-{lens[0]},{lens[1]}-"
+                f"{lens[1]}:{rng.randint(3, 40)},{rng.randint(3, 40)}:"
+                f"{lens[0] // len(motif)},{lens[1] // len(motif)}:"
+                f"0(0-{lens[0]}),0(0-{lens[1]}):1.000000,"
+                f"{rng.random():.6f}:{am}")
+        path = os.path.join(dsdir, f"cohort_sample{s}.vcf.gz")
+        w = BgzfWriter(path)
+        w.write(("\n".join(lines) + "\n").encode())
+        w.close()
+        paths.append(path)
+    return paths, len(used)
+
+
+# runs `python -m trgt_tpu_torch merge <argv>` and prints its exit code,
+# seconds and peak RSS. A child forked from this process would report this
+# process's RSS (CUDA context included) as its own high-water mark, so the
+# merge is the only child of a small interpreter that reads
+# getrusage(RUSAGE_CHILDREN) after it.
+_MERGE_CHILD = r"""
+import resource, subprocess, sys, time
+t0 = time.perf_counter()
+rc = subprocess.run([sys.executable, "-m", "trgt_tpu_torch", "merge",
+                     *sys.argv[1:]]).returncode
+seconds = time.perf_counter() - t0
+print(rc, seconds, resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss)
+"""
+
+
+def merge_child(args):
+    """`python -m trgt_tpu_torch merge ...` in a child process; returns
+    (seconds, peak RSS in MiB)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", _MERGE_CHILD, *args],
+                         cwd=REPO, env=env, check=True,
+                         stdout=subprocess.PIPE, text=True).stdout.split()
+    rc, seconds, max_rss_kib = int(out[0]), float(out[1]), int(out[2])
+    if rc != 0:
+        raise RuntimeError(f"merge exited {rc}")
+    return seconds, max_rss_kib / 1024
+
+
+def phase_merge_scale(dsdir: str):
+    phase(f"merge at scale: {MERGE_SAMPLES} samples x {MERGE_SITES} sites "
+          f"(a cohort of hundreds of samples over ~10^6 loci, cut to fit "
+          f"the script's time)")
+    t0 = time.perf_counter()
+    paths, n_union = write_cohort(
+        dsdir, os.path.join(dsdir, f"smoke_wgs_{DEVICE}.vcf.gz"))
+    print(f"wrote {len(paths)} VCFs of {MERGE_SITES} sites ({n_union} "
+          f"distinct) in {time.perf_counter() - t0:.3f} s")
+    out = {}
+    for out_type, ext in (("z", "vcf.gz"), ("b", "bcf")):
+        target = os.path.join(dsdir, f"cohort_merged.{ext}")
+        seconds, rss = merge_child(["--vcf", *paths, "-o", target,
+                                    "-O", out_type])
+        out[ext] = target
+        print(f"merge -O {out_type}: {seconds:.3f} s, peak RSS {rss:.1f} "
+              f"MiB, {os.path.getsize(target)} bytes", flush=True)
+    t0 = time.perf_counter()
+    n = check_bcf_equals_vcf(out["vcf.gz"], out["bcf"])
+    print(f"merged records {n} == distinct sites {n_union}; BCF read back "
+          f"== the VCF ({time.perf_counter() - t0:.3f} s)")
+    if n != n_union:
+        raise AssertionError(f"{n} merged records, {n_union} distinct sites")
 
 
 def main() -> int:
@@ -1103,7 +1494,19 @@ def main() -> int:
         t0 = time.perf_counter()
         fn()
         print(f"   ({time.perf_counter() - t0:.1f} s)")
-    kernels = phase_paths()
+    kernels, dsdir = phase_paths()
+    t_new = time.perf_counter()
+    t0 = time.perf_counter()
+    cram_launches = phase_cram(dsdir)
+    print(f"   ({time.perf_counter() - t0:.1f} s)")
+    for entry in kernels:
+        entry["cram_path"] = {"launches": cram_launches[entry["name"]]}
+    for fn in (phase_commands, phase_merge_scale):
+        t0 = time.perf_counter()
+        fn(dsdir)
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+    print(f"CRAM, commands and merge-at-scale phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_name_power())
     print(json.dumps({"kernels": kernels}))

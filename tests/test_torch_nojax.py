@@ -1,6 +1,7 @@
 """The port never imports JAX nor anything of the JAX package `trgt_tpu`.
-tests/conftest.py imports JAX into every test process, so the run is
-checked in a subprocess."""
+tests/conftest.py imports JAX into every test process, so each run is
+checked in a subprocess: `genotype`, and `merge`, `plot` and `validate`
+on a genotype run's outputs (these three load no torch either)."""
 
 import ast
 import os
@@ -9,44 +10,80 @@ import sys
 
 import pytest
 
+from trgt_tpu_torch.cli import main as port_main
+from trgt_tpu_torch.utils.synth import SynthLocus, make_dataset
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
 import sys
-from trgt_tpu_torch.utils.synth import SynthLocus, make_dataset
 from trgt_tpu_torch.cli import main
-td = sys.argv[1]
-fasta, bed, bam = make_dataset(td, [SynthLocus("HET", "CAG", 10, (10, 20)),
-                                    SynthLocus("ATX", "AT", 12, (12, 15))],
-                               depth=12)
-rc = main(["genotype", "--genome", fasta, "--repeats", bed, "--reads", bam,
-           "--output-prefix", td + "/out", "--device", sys.argv[2],
-           *sys.argv[3:]])
+rc = main(sys.argv[1:])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "trgt_tpu"))
-print("rc", rc, "foreign", foreign)
+print("rc", rc, "foreign", foreign, "torch", "torch" in sys.modules)
 """
 
 
-def _run_child(tmp_path, device, *extra):
+def _dataset(tmp_path):
+    return make_dataset(str(tmp_path),
+                        [SynthLocus("HET", "CAG", 10, (10, 20)),
+                         SynthLocus("ATX", "AT", 12, (12, 15))], depth=12)
+
+
+def _run_child(argv, torch_loaded):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _CHILD, str(tmp_path),
-                           device, *extra], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", _CHILD, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.splitlines()[-1] == "rc 0 foreign []"
+    assert proc.stdout.splitlines()[-1] == \
+        f"rc 0 foreign [] torch {torch_loaded}"
+    return proc
+
+
+def _run_genotype_child(tmp_path, device, *extra):
+    fasta, bed, bam = _dataset(tmp_path)
+    _run_child(["genotype", "--genome", fasta, "--repeats", bed, "--reads",
+                bam, "--output-prefix", str(tmp_path / "out"), "--device",
+                device, *extra], True)
     assert (tmp_path / "out.vcf.gz").exists()
 
 
 @pytest.mark.parametrize("device", ["cpu", "host"])
 def test_genotype_run_imports_no_jax(tmp_path, device):
-    _run_child(tmp_path, device)
+    _run_genotype_child(tmp_path, device)
 
 
 @pytest.mark.parametrize("device", ["cpu", "host"])
 def test_targeted_run_imports_no_jax_and_no_trgt_tpu(tmp_path, device):
-    _run_child(tmp_path, device, "--preset", "targeted")
+    _run_genotype_child(tmp_path, device, "--preset", "targeted")
+
+
+@pytest.mark.parametrize("command", ["merge", "plot", "validate"])
+def test_host_command_imports_no_jax_and_no_torch(tmp_path, command):
+    fasta, bed, bam = _dataset(tmp_path)
+    prefix = str(tmp_path / "out")
+    assert port_main(["genotype", "--genome", fasta, "--repeats", bed,
+                      "--reads", bam, "--output-prefix", prefix,
+                      "--device", "host"]) == 0
+    out = str(tmp_path / {"merge": "merged.bcf", "plot": "het.svg",
+                          "validate": "unused"}[command])
+    argv = {
+        "merge": ["merge", "--vcf", prefix + ".vcf.gz", "--force-single",
+                  "-o", out, "-O", "b"],
+        "plot": ["plot", "--genome", fasta, "--repeats", bed, "--vcf",
+                 prefix + ".vcf.gz", "--spanning-reads",
+                 prefix + ".spanning.bam", "--repeat-id", "HET", "--image",
+                 out],
+        "validate": ["validate", "--genome", fasta, "--repeats", bed],
+    }[command]
+    proc = _run_child(argv, False)
+    if command == "validate":
+        assert "Validation successful. Loci pass = 2" in proc.stdout
+    else:
+        assert os.path.getsize(out) > 0
 
 
 def _imported_modules(path):
@@ -65,10 +102,12 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_profile.py")
 
 
 def test_no_source_imports_jax():
-    """No module of trgt_tpu_torch/**.py nor chip_smoke.py imports `jax`,
+    """No module of trgt_tpu_torch/**.py, chip_smoke.py nor chip_profile.py
+    imports `jax`,
     `trgt_tpu` or `trgt_tpu.*`, not even lazily inside a function."""
     n_files = 0
     for path in _port_sources():

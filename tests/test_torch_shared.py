@@ -1,13 +1,19 @@
 """The port keeps its own copies of the JAX package's numpy/stdlib modules
-(trgt_tpu_torch/{utils,io,reads,hmm,genotype,kernels,engine}). Each copy
+(trgt_tpu_torch/{utils,io,reads,hmm,genotype,kernels,engine,merge,plot}).
+Each copy
 is held against its original on seeded inputs: one parametrised test, one
 case per group of modules, every comparison exact."""
 
+import contextlib
 import dataclasses
+import gzip
 import importlib
+import io as std_io
 import os
 import random
 import re
+from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -308,10 +314,215 @@ def case_native_codec(pkg, tmp):
             native.banded_align(p, t[280:520], 2, 5, 1, 5, 5, 32)]
 
 
+def case_bcf(pkg, tmp):
+    """BcfWriter bytes, compressed and not, with ints, floats, strings,
+    genotypes and missing values; both readers' records of them."""
+    bcf = mod(pkg, "io.bcf")
+    rng = random.Random(13)
+    header = ["##fileformat=VCFv4.2",
+              '##FILTER=<ID=PASS,Description="All filters passed">',
+              '##INFO=<ID=TRID,Number=1,Type=String,Description="x">',
+              '##INFO=<ID=END,Number=1,Type=Integer,Description="x">',
+              '##FORMAT=<ID=GT,Number=1,Type=String,Description="x">',
+              '##FORMAT=<ID=AL,Number=.,Type=Integer,Description="x">',
+              '##FORMAT=<ID=MC,Number=.,Type=String,Description="x">',
+              '##FORMAT=<ID=AP,Number=.,Type=Float,Description="x">',
+              "##contig=<ID=c1,length=100000>",
+              "##contig=<ID=c2,length=100000>",
+              "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT"
+              "\ts1\ts2\ts3"]
+    out = []
+    for uncompressed in (False, True):
+        path = os.path.join(tmp, f"{pkg}_{uncompressed}.bcf")
+        w = bcf.BcfWriter(path, header, uncompressed=uncompressed)
+        pos = 0
+        for i in range(30):
+            pos += rng.randint(1, 5000)
+            alleles = [random_dna(rng, 1, 12).decode()
+                       for _ in range(rng.randint(1, 4))]
+            gts = [[(rng.choice([None, *range(len(alleles))]), k > 0
+                     and rng.random() < 0.3) for k in range(rng.randint(1, 2))]
+                   for _ in range(3)]
+            als = [[rng.choice([bcf.INT32_MISSING, rng.randint(0, 70000)])
+                    for _ in range(rng.randint(1, 3))] for _ in range(3)]
+            aps = [[rng.choice([None, rng.random()])
+                    for _ in range(rng.randint(1, 2))] for _ in range(3)]
+            mcs = [rng.choice([".", "12_3", "4,5"]) for _ in range(3)]
+            w.write_record(
+                chrom="c1" if i < 20 else "c2", pos=pos, rid=".",
+                alleles=alleles, qual=None,
+                info=[("TRID", f"T{i}"), ("END", pos + 40)],
+                fmt=[("GT", bcf.BcfWriter.encode_format_gt(gts)),
+                     ("AL", bcf.BcfWriter.encode_format_ints(als)),
+                     ("MC", bcf.BcfWriter.encode_format_strings(mcs)),
+                     ("AP", bcf.BcfWriter.encode_format_floats(aps))],
+                n_sample=3)
+        w.close()
+        out.append(open(path, "rb").read())
+        out.append(list(bcf.BcfReader(path).records()))
+        if not uncompressed:
+            out.append(list(bcf.BcfStreamReader(path).records()))
+    out += [bcf.FLOAT_MISSING, bcf.FLOAT_EOV, bcf.INT32_MISSING]
+    return out
+
+
+def case_cram_write(pkg, tmp):
+    """CramWriter bytes (and .crai) of the synthetic BAM; rANS order 0
+    and 1 and ITF8/LTF8 encodings. The file ID is the path's last 20
+    bytes and gzip stamps the time: both are pinned."""
+    cw = mod(pkg, "io.cram_write")
+    fasta, _bed, bam_path = _dataset(pkg, tmp)
+    bam = mod(pkg, "io").BamReader(bam_path)
+    path = os.path.join(tmp, pkg, "reads_of_the_sample.cram")
+    with mock.patch.object(gzip, "time", SimpleNamespace(time=lambda: 0.0)):
+        w = cw.CramWriter(path, bam.header.text, bam.header.references,
+                          fasta)
+        for rec in bam:
+            aux = [(tag, "f" if isinstance(v, float) else "i"
+                    if isinstance(v, int) else "B" if isinstance(v, tuple)
+                    else "Z", v) for tag, v in rec.aux().items()]
+            w.write_record(rec.qname, rec.flag, rec.ref_id, rec.pos,
+                           rec.mapq, rec.cigar, rec.seq, rec.qual, aux)
+        w.close()
+    rng = random.Random(14)
+    data = bytes(rng.choice(b"ACGT") for _ in range(3000)) + \
+        bytes(rng.randrange(256) for _ in range(500))
+    return [open(path, "rb").read(), open(path + ".crai", "rb").read(),
+            cw.rans_encode(data, 0), cw.rans_encode(data, 1),
+            [cw.itf8(v) for v in (0, 127, 128, 1 << 20, -1)],
+            [cw.ltf8(v) for v in (0, 1 << 35, (1 << 63) - 1, -1)]]
+
+
+def _vcf_texts(tmp, pkg, rng):
+    """Three single-sample VCFs over two contigs: shared and private
+    sites, alleles and genotypes per sample, missing values."""
+    paths = []
+    for s in range(3):
+        lines = ["##fileformat=VCFv4.2",
+                 '##INFO=<ID=TRID,Number=1,Type=String,Description="x">',
+                 '##INFO=<ID=END,Number=1,Type=Integer,Description="x">',
+                 '##INFO=<ID=MOTIFS,Number=.,Type=String,Description="x">',
+                 '##INFO=<ID=STRUC,Number=1,Type=String,Description="x">']
+        lines += [f'##FORMAT=<ID={k},Number=.,Type={t},Description="x">'
+                  for k, t in (("GT", "String"), ("AL", "Integer"),
+                               ("ALLR", "String"), ("SD", "Integer"),
+                               ("MC", "String"), ("MS", "String"),
+                               ("AP", "Float"), ("AM", "Float"))]
+        lines += ["##contig=<ID=c1,length=100000>",
+                  "##contig=<ID=c2,length=100000>",
+                  "##trgtVersion=3.0.0-tpu",
+                  "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\t"
+                  f"FORMAT\ts{s}"]
+        for contig in ("c1", "c2"):
+            for site in range(12):
+                if rng.random() < 0.25:
+                    continue
+                ref = "A" + "CAG" * (3 + site % 4)
+                alts = sorted({"A" + "CAG" * rng.randint(1, 9)
+                               for _ in range(rng.randint(0, 2))} - {ref})
+                n = len(alts) + 1
+                gt = rng.choice(["./.", f"0/{n - 1}", f"{n - 1}|0", "0"])
+                am = rng.choice([".,.", f"{rng.random():.6f},0.500000"])
+                lines.append(
+                    f"{contig}\t{1000 * site + 1}\t.\t{ref}\t"
+                    f"{','.join(alts) or '.'}\t.\t.\t"
+                    f"TRID={contig}_{site};END={1000 * site + len(ref)};"
+                    f"MOTIFS=CAG;STRUC=<TR>\tGT:AL:ALLR:SD:MC:MS:AP:AM\t"
+                    f"{gt}:{len(ref)},{rng.randint(3, 30)}:1-2,3-4:5,6:"
+                    f"3,4:0(0-9),0(0-12):1.000000,0.9:{am}")
+        path = os.path.join(tmp, f"{pkg}_s{s}.vcf")
+        open(path, "w").write("\n".join(lines) + "\n")
+        paths.append(path)
+    return paths
+
+
+def case_merge(pkg, tmp):
+    """run_merge of seeded VCFs to every output type and back from BCF;
+    the streaming reader's records of each input."""
+    runner = mod(pkg, "merge.runner")
+    vcf_text = mod(pkg, "merge.vcf_text")
+    paths = _vcf_texts(tmp, pkg, random.Random(15))
+    out = [[list(vcf_text.VcfTextReader(p).records(c))
+            for c in ("c1", "c2")] for p in paths]
+    for out_type in "vzbu":
+        target = os.path.join(tmp, f"{pkg}_merged.{out_type}")
+        runner.run_merge(SimpleNamespace(
+            vcfs=paths, vcf_list=None, genome_path=None, output=target,
+            output_type=out_type, skip_n=None, process_n=None,
+            print_header=False, force_single=False, force_samples=False,
+            no_version=True, missing_to_ref=False, strategy="exact",
+            quit_on_errors=False, contigs=None))
+        out.append(open(target, "rb").read())
+    return out
+
+
+def case_plot(pkg, tmp):
+    """Allele and waterfall scenes of seeded reads (with methylation) over
+    a two-motif locus: segmentations, SVG text, PDF and PNG bytes."""
+    inp, align = mod(pkg, "plot.input"), mod(pkg, "plot.align")
+    plots, pipeplot = mod(pkg, "plot.plots"), mod(pkg, "plot.pipeplot")
+    params = mod(pkg, "plot.params")
+    rng = random.Random(16)
+    lf, rf = (random_dna(rng, 50, 50).decode() for _ in range(2))
+    motifs = ["CAG", "CCG"]
+    locus = inp.PlotLocus(
+        id="P1", struc="<TR>", motifs=motifs, left_flank=lf, right_flank=rf,
+        region=mod(pkg, "utils").GenomicRegion.from_string("c1:1000-1050"))
+    alleles = ["CAG" * 6 + "CCG" * 4, "CAG" * 9 + "CCG" * 5]
+    reads = []
+    for i in range(12):
+        tr = noisy_repeat(rng, alleles[i % 2].encode(), 1, 0.04).decode()
+        cut_l, cut_r = rng.randint(0, 20), rng.randint(0, 20)
+        seq = lf[cut_l:] + tr + rf[:len(rf) - cut_r]
+        betas = [align.Beta(pos=p, value=rng.random())
+                 for p in range(len(seq) - 1) if seq[p:p + 2] == "CG"]
+        reads.append(inp.PlotRead(read_name=f"r{i}", seq=seq,
+                                  left_flank=len(lf) - cut_l,
+                                  right_flank=len(rf) - cut_r,
+                                  allele=i % 2, betas=betas))
+    out = [align.align_motifs([m.encode() for m in motifs], a)
+           for a in alleles]
+    for show in ("motifs", "meth"):
+        for squished in (False, True):
+            p = params.pick_params(motifs, squished)
+            scenes = [plots.plot_alleles(locus, show,
+                                         [lf + a + rf for a in alleles],
+                                         reads, p),
+                      plots.plot_waterfall(locus, show, reads, p)]
+            out += [pipeplot.generate_string(sc) for sc in scenes]
+    for ext in ("pdf", "png"):
+        path = os.path.join(tmp, f"{pkg}.{ext}")
+        pipeplot.generate_image(scenes[0], path)
+        out.append(open(path, "rb").read())
+    return out
+
+
+def case_validate(pkg, tmp):
+    """run_validate's stdout and stderr on the synthetic catalog with a
+    few bad lines."""
+    validate = mod(pkg, "engine.validate")
+    fasta, bed, _bam = _dataset(pkg, tmp)
+    bad = os.path.join(tmp, pkg, "bad.bed")
+    good = open(bed).read().splitlines()
+    open(bad, "w").write("\n".join(good[:2] + [
+        "chrZ\t10\t20\tID=X;MOTIFS=CA;STRUC=<TR>",
+        "chrS\t50\t40\tID=Y;MOTIFS=CA;STRUC=<TR>"] + good[2:]) + "\n")
+    out = []
+    for catalog, flank in ((bed, 250), (bad, 250), (bed, 100000)):
+        stdout, stderr = std_io.StringIO(), std_io.StringIO()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            validate.run_validate(SimpleNamespace(
+                genome_path=fasta, repeats_path=catalog, flank_len=flank))
+        out.append((stdout.getvalue(), stderr.getvalue()))
+    return out
+
+
 CASES = [case_hmm, case_decode_fast, case_align_host,
          case_align_banded_linear, case_span_window, case_genotypers,
          case_clip, case_rand_rs, case_utils, case_synth_files,
-         case_workflow_and_writers, case_native_codec]
+         case_workflow_and_writers, case_native_codec, case_bcf,
+         case_cram_write, case_merge, case_plot, case_validate]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])

@@ -10,11 +10,19 @@ names.
                      PyTorch versions, the build that loads them, and the
                      host twins (align_host, span_window)
   io/, reads/, hmm/, genotype/, utils/
-                     host-side I/O and per-locus logic
+                     host-side I/O and per-locus logic (io/bcf.py BCF
+                     reader and writer; io/cram_write.py a CRAM writer
+                     that no command uses: tests and chip_smoke.py write
+                     CRAM inputs with it)
   engine/pipeline.py BatchPipeline: every device stage on the port's
                      kernels, or on the host twins with --device host
   engine/runner.py   the genotype driver
-  cli.py             `python -m trgt_tpu_torch genotype ...`
+  engine/validate.py the catalog validator
+  merge/             streaming k-way VCF/BCF merge
+  plot/              allele and waterfall plots (SVG, PDF; PNG by Pillow)
+  cli.py             `python -m trgt_tpu_torch {genotype,validate,merge,
+                     plot} ...`; merge, plot and validate are host code,
+                     as in trgt_tpu, and never load torch
 """
 
 # merge sniffs ##trgtVersion from VCF headers and applies pre-1.0 padding

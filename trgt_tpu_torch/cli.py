@@ -1,6 +1,7 @@
-"""Command line of the PyTorch/CUDA port: `genotype` with the flags,
-presets and defaults of `trgt_tpu/cli.py` (ref: src/cli.rs GenotypeArgs)
-and `--device cuda|cpu|host`."""
+"""Command line of the PyTorch/CUDA port: `genotype`, `validate`, `merge`
+and `plot` with the flags, presets and defaults of `trgt_tpu/cli.py` (ref:
+src/cli.rs). `genotype` alone takes `--device cuda|cpu|host`: the other
+three are host code, as in the reference, and never load torch."""
 
 import argparse
 import logging
@@ -73,6 +74,57 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None)
     g.add_argument("--batch-size", dest="batch_size", type=int, default=None,
                    help="Loci per batch (default 256 on cuda, 64 otherwise)")
+
+    # validate (ref: cli.rs ValidateArgs)
+    v = sub.add_parser("validate", help="Tandem Repeat Catalog Validator")
+    v.add_argument("-g", "--genome", dest="genome_path", metavar="FASTA",
+                   type=_existing_file, required=True)
+    v.add_argument("-b", "--repeats", dest="repeats_path", metavar="REPEATS",
+                   type=_existing_file, required=True)
+    v.add_argument("--flank-len", dest="flank_len", type=int, default=250)
+
+    # merge (ref: cli.rs:73-180 MergeArgs)
+    m = sub.add_parser("merge", help="Tandem Repeat VCF Merger")
+    m.add_argument("--vcf", dest="vcfs", nargs="+", default=None)
+    m.add_argument("--vcf-list", dest="vcf_list", type=_existing_file,
+                   default=None)
+    m.add_argument("-g", "--genome", dest="genome_path",
+                   type=_existing_file, default=None)
+    m.add_argument("-o", "--output", default=None)
+    m.add_argument("-O", "--output-type", dest="output_type", default=None,
+                   choices=["u", "b", "v", "z"])
+    m.add_argument("--skip-n", dest="skip_n", type=int, default=None)
+    m.add_argument("--process-n", dest="process_n", type=int, default=None)
+    m.add_argument("--print-header", action="store_true")
+    m.add_argument("--force-single", action="store_true")
+    m.add_argument("--force-samples", action="store_true")
+    m.add_argument("--no-version", action="store_true")
+    m.add_argument("--missing-to-ref", action="store_true")
+    m.add_argument("--strategy", default="exact", choices=["exact"])
+    m.add_argument("--quit-on-errors", action="store_true")
+    m.add_argument("--contig", dest="contigs", nargs="+", default=None)
+
+    # plot (ref: cli.rs PlotArgs)
+    p = sub.add_parser("plot", help="Tandem Repeat Plotter")
+    p.add_argument("-g", "--genome", dest="genome_path", metavar="FASTA",
+                   type=_existing_file, required=True)
+    p.add_argument("-b", "--repeats", dest="repeats_path", metavar="REPEATS",
+                   type=_existing_file, required=True)
+    p.add_argument("-v", "--vcf", dest="bcf_path", metavar="VCF",
+                   type=_existing_file, required=True)
+    p.add_argument("-r", "--spanning-reads", dest="reads_path",
+                   metavar="READS", type=_existing_file, required=True)
+    p.add_argument("--repeat-id", dest="tr_id", required=True)
+    p.add_argument("-o", "--image", dest="image_path", metavar="IMAGE",
+                   required=True)
+    p.add_argument("--plot-type", dest="plot_type", default="allele",
+                   choices=["allele", "waterfall"])
+    p.add_argument("--show", default="motifs", choices=["motifs", "meth"])
+    p.add_argument("--flank-len", dest="flank_len", type=int, default=50)
+    p.add_argument("--max-allele-reads", dest="max_allele_reads", type=int,
+                   default=None)
+    p.add_argument("--squished", action="store_true")
+    p.add_argument("--font-family", dest="font_family", default=None)
     return parser
 
 
@@ -109,9 +161,19 @@ def main(argv=None) -> int:
     start = time.time()
     log.info("Running trgt-tpu-torch %s %s", args.command, FULL_VERSION)
     try:
-        apply_genotype_preset(args)
-        from .engine.runner import run_genotype
-        run_genotype(args)
+        if args.command == "genotype":
+            apply_genotype_preset(args)
+            from .engine.runner import run_genotype
+            run_genotype(args)
+        elif args.command == "validate":
+            from .engine.validate import run_validate
+            run_validate(args)
+        elif args.command == "merge":
+            from .merge.runner import run_merge
+            run_merge(args)
+        elif args.command == "plot":
+            from .plot.runner import run_plot
+            run_plot(args)
     except Exception as e:
         log.error("%s", e)
         return 1

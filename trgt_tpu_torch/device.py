@@ -12,13 +12,14 @@
 
 from typing import Optional
 
-import torch
-
 DEVICE_MODES = ("cuda", "cpu", "host")
 
 
-def resolve_device(mode: str) -> Optional[torch.device]:
-    """torch.device for `cuda`/`cpu`, None for `host`."""
+def resolve_device(mode: str) -> Optional["torch.device"]:
+    """torch.device for `cuda`/`cpu`, None for `host`. torch is imported
+    here, not with the module: `merge`, `plot` and `validate` import the
+    CLI and never load it."""
+    import torch
     if mode == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda: PyTorch sees no CUDA device")
