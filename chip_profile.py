@@ -3,6 +3,30 @@
     python3 chip_profile.py [wgs|targeted]
     python3 chip_profile.py scaling
     python3 chip_profile.py streams
+    python3 chip_profile.py pool PARENT_TREE [96|384|paths-N|busy[-N][:wgs|:targeted] ...]
+
+`pool` times `genotype --device cuda` of bench96 under both presets as a
+user runs it, one child process per run, in rounds (forward, backward,
+forward): the tree at PARENT_TREE (another checkout, unpacked with `git
+archive`) at `-t 1` and `-t 4` (read-extraction threads there), and this
+tree at `-t 1`, `-t 2` and `-t 4` (worker processes, each on the card),
+at `-t 4` with worker 0 on the card and the others on the host twins (the
+JAX package's placement), and at `-t 4 --batch-size 8`. It prints every
+reading's wall seconds and loci/s, each worker's start-up seconds, and
+holds every run's records against this tree's `-t 1`. Then the change's
+rows again on a 384-locus catalog from the same generator, and the card's
+busy share at `-t 1` and `-t 4` from `nvidia-smi` utilization samples
+(every 50 ms) over the run (`busy-N`: on an N-locus catalog). This tree's
+`-t N` rows run the worker pool at any catalog size (`runner.POOL_MIN_LOCI`
+set to 0; a user's smaller catalog runs on threads). `paths-N` sets the two paths of `-t 4` side by
+side on an N-locus catalog of the same generator: this tree at `-t 1`, at
+`-t 4` as read-extraction threads (`TRGT_TPU_PROCS=0`), and at `-t 4` as
+worker processes at their default batch and at `--batch-size 8`. Parts
+can be run alone: `96` (the rows above), `384` (the change's rows on 384
+loci), `paths-N` and `busy[-N]`, each for one preset with `:wgs` or
+`:targeted`. A `-t N` row also prints where the child's wall
+went: the parent's start-up before the spawn, the last end-of-stream and
+the last worker exit after it, and the parent's end.
 
 `scaling` times the kernels, whose cost is latency between serial steps,
 alone, at shapes that take that cost apart: the Viterbi kernel on one to
@@ -29,6 +53,7 @@ Needs a CUDA device; imports nothing of JAX or of trgt_tpu.
 
 import json
 import os
+import subprocess
 import sys
 import tempfile
 import time
@@ -36,6 +61,8 @@ import time
 import numpy as np
 
 import chip_smoke as cs
+
+CHANGE_TREE = os.path.dirname(os.path.abspath(__file__))
 
 
 def device_intervals(trace_path):
@@ -224,6 +251,7 @@ def scaling_editdist(rng) -> None:
 def streams() -> None:
     import torch
     from trgt_tpu_torch.engine import pipeline
+    from trgt_tpu_torch.kernels import telemetry
     from trgt_tpu_torch.kernels import viterbi as vt
     from trgt_tpu_torch.utils.synth import cached_hetero_dataset
     dsdir = cached_hetero_dataset(cs.N_LOCI, seed=cs.SEED,
@@ -238,13 +266,13 @@ def streams() -> None:
 
     def replay_all(n_streams):
         vt.MAX_STREAMS = n_streams
-        launches = vt.launches
+        launches = telemetry.count("viterbi")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for hmms, queries, _dev in calls:
             vt.viterbi_batch_multi(hmms, queries, dev)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, vt.launches - launches
+        return time.perf_counter() - t0, telemetry.count("viterbi") - launches
 
     many = vt.MAX_STREAMS
     replay_all(many)                                    # warm
@@ -253,6 +281,185 @@ def streams() -> None:
         print(f"  up to {n_streams:2d} streams: {seconds * 1e3:9.3f} ms for "
               f"{launches} launches")
     vt.MAX_STREAMS = many
+
+
+# this tree's worker pool at any catalog size (runner.POOL_MIN_LOCI 0), and
+# in mode "mixed" with worker 0 on the requested device and the others on
+# the host twins, as trgt_tpu/engine/runner.py:146-149 places them: for
+# these measurements only
+_POOL = r"""
+import sys
+from trgt_tpu_torch.engine import runner
+runner.POOL_MIN_LOCI = 0
+if sys.argv[1] == "mixed":
+    spec = runner._worker_spec
+    def mixed(args, wk, level):
+        out = spec(args, wk, level)
+        if wk > 0:
+            out["args"]["device"] = "host"
+        return out
+    runner._worker_spec = mixed
+from trgt_tpu_torch.cli import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+# (tree, -t, extra arguments, mode): mode "mixed" puts worker 0 alone on
+# the card, "threads" sets TRGT_TPU_PROCS=0 (read-extraction threads of one
+# process, the path of -t N before the worker pool)
+POOL_ROWS = [("parent", 1, (), ""), ("parent", 4, (), ""),
+             ("change", 1, (), ""), ("change", 2, (), ""),
+             ("change", 4, (), ""), ("change", 4, (), "mixed"),
+             ("change", 4, ("--batch-size", "8"), "")]
+POOL_ROWS_384 = [("change", 1, (), ""), ("change", 2, (), ""),
+                 ("change", 4, (), ""),
+                 ("change", 4, ("--batch-size", "8"), "")]
+PATH_ROWS = [("change", 1, (), ""), ("change", 4, (), "threads"),
+             ("change", 4, (), ""), ("change", 4, ("--batch-size", "8"), "")]
+POOL_ROUNDS = 3
+
+
+def cli_run(tree, dsdir, reads, preset, prefix, threads, extra=(),
+            mode=""):
+    """`genotype --device cuda -t N` of `tree` in a child process, logging
+    at debug level; (wall seconds, stderr, the epoch it was started at)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = tree
+    if mode == "threads":
+        env["TRGT_TPU_PROCS"] = "0"
+    head = [sys.executable, "-m", "trgt_tpu_torch"]
+    if threads > 1 and mode != "threads" and tree == CHANGE_TREE:
+        head = [sys.executable, "-c", _POOL, mode or "pool"]
+    cmd = head + ["-vv", "genotype",
+                  "--genome", os.path.join(dsdir, "ref.fasta"),
+                  "--repeats", os.path.join(dsdir, "repeats.bed"),
+                  "--reads", os.path.join(dsdir, reads), "--preset", preset,
+                  "--output-prefix", prefix, "--device", "cuda", "-t",
+                  str(threads), *extra]
+    epoch, t0 = time.time(), time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tree, env=env, capture_output=True,
+                          text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[3:])} in {tree} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return wall, proc.stderr, epoch
+
+
+def row_name(row):
+    tree, threads, extra, mode = row
+    return (f"{tree} -t {threads}"
+            + {"": "", "mixed": " worker 0 on cuda, rest host",
+               "threads": " threads"}[mode]
+            + (" " + " ".join(extra) if extra else ""))
+
+
+def pool_rows(trees, dsdir, n_loci, presets, rows):
+    """Every row of `rows` POOL_ROUNDS times per preset, in turns; prints
+    and returns {(preset, row name): [loci/s, ...]}."""
+    out = {}
+    for preset in presets:
+        reads = cs.low_quality_reads(dsdir) if preset == "targeted" \
+            else "reads.bam"
+        want = None
+        for rnd in range(POOL_ROUNDS):
+            for row in (rows if rnd % 2 == 0 else rows[::-1]):
+                tree, threads, extra, mode = row
+                prefix = os.path.join(dsdir, f"pool_{preset}_{tree}_"
+                                      f"t{threads}_{len(extra)}{mode}")
+                wall, stderr, epoch = cli_run(trees[tree], dsdir, reads,
+                                              preset, prefix, threads, extra,
+                                              mode)
+                got = cs.records(prefix)
+                if want is None:
+                    want = got
+                if got != want:
+                    raise AssertionError(f"{row_name(row)}: records differ "
+                                         f"({preset})")
+                line = f"{preset} {n_loci} loci, {row_name(row)}: " \
+                    f"{wall:.3f} s, {n_loci / wall:.3f} loci/s"
+                if tree == "change" and threads > 1 and mode != "threads":
+                    workers = cs.worker_lines(stderr, threads)
+                    line += "; workers (loci, ready s, done s) " + \
+                        json.dumps({w: (v["loci"], v.get("ready"), v["done"])
+                                    for w, v in sorted(workers.items())}) + \
+                        "; the parent (s) " + json.dumps(
+                            cs.pool_timeline(stderr, epoch, wall))
+                print(line, flush=True)
+                out.setdefault((preset, row_name(row)), []).append(
+                    n_loci / wall)
+    for (preset, name), rates in out.items():
+        print(f"SUMMARY {preset} {n_loci} loci, {name}: loci/s "
+              f"{[round(r, 3) for r in rates]}, median "
+              f"{float(np.median(rates)):.3f}, spread "
+              f"{min(rates):.3f}-{max(rates):.3f}")
+    return out
+
+
+def sampled_busy(trees, dsdir, preset, threads, extra=()):
+    """The card's busy share over one run from nvidia-smi's utilization
+    samples (percent of the last sample period with a kernel running)."""
+    reads = cs.low_quality_reads(dsdir) if preset == "targeted" \
+        else "reads.bam"
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(0.5)
+        wall, _, _ = cli_run(trees["change"], dsdir, reads, preset,
+                             os.path.join(dsdir, f"busy_{preset}_t{threads}"),
+                             threads, extra)
+    finally:
+        smi.terminate()
+        samples = [int(x) for x in smi.communicate()[0].split()
+                   if x.strip().isdigit()]
+    # drop the half second before the run
+    samples = samples[10:]
+    print(f"busy {preset} -t {threads} {' '.join(extra)}: "
+          f"{float(np.mean(samples)):.2f} % mean of {len(samples)} samples "
+          f"over {wall:.3f} s (max {max(samples)} %)", flush=True)
+
+
+def pool(parent_tree: str, parts=("96", "384", "busy")) -> None:
+    """The parts named in `parts`, each `96`, `384`, `paths-N`, `busy` or
+    `busy-N`, with `:wgs` or `:targeted` for one preset only. Only `96`
+    runs the tree at PARENT_TREE."""
+    from trgt_tpu_torch.kernels import _build
+    from trgt_tpu_torch.utils.synth import cached_hetero_dataset
+    trees = {"parent": os.path.abspath(parent_tree), "change": CHANGE_TREE}
+    t0 = time.perf_counter()
+    _build.build()
+    if any(part.partition(":")[0] == "96" for part in parts):
+        subprocess.run([sys.executable, "-c", "from trgt_tpu_torch.kernels "
+                        "import _build; _build.build()"], cwd=trees["parent"],
+                       env=dict(os.environ, PYTHONPATH=trees["parent"]),
+                       check=True)
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    ds96 = cached_hetero_dataset(cs.N_LOCI, seed=cs.SEED,
+                                 tag=f"bench{cs.N_LOCI}", root=cs.DATA_ROOT)
+    for part in parts:
+        name, _, preset = part.partition(":")
+        presets = (preset,) if preset else ("wgs", "targeted")
+        if name == "96":
+            pool_rows(trees, ds96, cs.N_LOCI, presets, POOL_ROWS)
+        elif name == "384" or name.startswith("paths-"):
+            n = int(name.rpartition("-")[2])
+            t0 = time.perf_counter()
+            ds = ds96 if n == cs.N_LOCI else cached_hetero_dataset(
+                n, seed=cs.SEED, tag=f"bench{n}", root=cs.DATA_ROOT)
+            print(f"{n}-locus catalog generated in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            pool_rows(trees, ds, n, presets,
+                      POOL_ROWS_384 if name == "384" else PATH_ROWS)
+        elif name == "busy" or name.startswith("busy-"):
+            n = int(name.partition("-")[2] or cs.N_LOCI)
+            ds = ds96 if n == cs.N_LOCI else cached_hetero_dataset(
+                n, seed=cs.SEED, tag=f"bench{n}", root=cs.DATA_ROOT)
+            for preset in presets:
+                for threads in (1, 4):
+                    sampled_busy(trees, ds, preset, threads)
+        else:
+            raise ValueError(f"unknown pool part {part!r}")
 
 
 def main() -> int:
@@ -266,6 +473,11 @@ def main() -> int:
     if preset in ("scaling", "streams"):
         print(cs.gpu_name_power())
         (scaling if preset == "scaling" else streams)()
+        return 0
+    if preset == "pool":
+        print(cs.gpu_name_power())
+        pool(sys.argv[2], sys.argv[3:] or ("96", "384", "busy"))
+        print(cs.gpu_name_power())
         return 0
     from trgt_tpu_torch.utils.synth import cached_hetero_dataset
     print(cs.gpu_name_power())

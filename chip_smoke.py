@@ -60,6 +60,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
      scale        and private sites, alleles per sample) merged by `python
                   -m trgt_tpu_torch merge` to .vcf.gz and .bcf: seconds,
                   peak RSS, record count == distinct sites, BCF == VCF
+ 12. worker pool  a 256-locus catalog of the same generator (64 loci a
+                  worker at -t 4: a smaller catalog runs on threads)
+                  under both presets as child processes `python -m
+                  trgt_tpu_torch -vv genotype -t 1/2/4 --device cuda`:
+                  -t 2 and -t 4 write the records of -t 1, every
+                  worker that wrote a record launched Viterbi (its
+                  counters, logged at debug level), and the workers
+                  together launched every kernel of the path; the walls
+ 13. mesh         `engine.sharding.dryrun(2, "cuda")` over [cuda:0,
+                  cuda:0], then the wgs path under that mesh: the records
+                  of phase 7, flank, Viterbi and e2e launched on both
+                  shards (the wrappers' launches, which telemetry also
+                  counts by the shard whose thread made them)
+ 14. karyotype    a haploid chrX locus under --karyotype XY and a
+     and shards   zero-ploidy chrY locus (cuda == host, the expected GT),
+                  and a 3-way --shard-index/--shard-count split of the
+                  bench catalog under cuda whose records together equal
+                  phase 7's host run
+The launch counts and the bounds come from the kernels' own counters
+(trgt_tpu_torch/kernels/telemetry.py), set to 0 just before a run and
+read just after; a worker process's are logged by the worker.
 Both replays time the kernel and reckon its bound over every call of the
 path, and hold every call against the plain version. The plain banded e2e
 walks pattern rows in Python, so the problems of all band calls of a path
@@ -67,13 +88,15 @@ go through it in a few batches, against which each call's kernel output
 is held problem by problem. The plain Viterbi
 takes dense tables built from the HMMs' edge lists, not from the kernel's
 sparse ones. It walks positions in Python, at a cost that hardly depends
-on the number of rows: calls up to a padded query length of REPLAY_MAX_L
-it runs one by one; the rows of all longer calls it runs as one batch,
-against which each call's kernel output is held row by row. The
+on the number of rows: the rows of all calls up to a padded query length
+of REPLAY_MAX_L it runs as one batch, those of all longer calls as
+another, against which each call's kernel output is held row by row. The
 second-to-last line is
 {"kernels": [...]}: one entry per kernel with the targeted path's numbers
 and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
-the launches of phase 9. The last line is
+the launches of phase 9, under "pool_path" the launches of the targeted
+-t 4 workers of phase 12 together, and under "mesh_path" the launches of
+phase 13 by shard. The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
@@ -83,6 +106,7 @@ import io
 import json
 import os
 import random
+import re
 import struct
 import subprocess
 import sys
@@ -93,10 +117,10 @@ DATA_ROOT = os.path.join(REPO, "build", "trgt_tpu_torch", "data")
 N_LOCI = 96
 SEED = 42
 DEVICE = "cuda"
-# a path's Viterbi calls up to this padded query length are run through
-# the plain version one by one; the longer ones share one plain batch (the
-# plain version walks positions in Python, a quarter to half a second per
-# 100 positions whatever the batch holds)
+# a path's Viterbi calls up to this padded query length share one plain
+# batch, the longer ones another (the plain version walks positions in
+# Python, a quarter to half a second per 100 positions whatever the batch
+# holds)
 REPLAY_MAX_L = 1024
 # the Viterbi kernel is also timed over the calls up to this padded query
 # length alone ("ms_prev_calls"): the calls that the time of the kernel
@@ -107,12 +131,6 @@ PREV_MAX_L = 4096
 # kernel took before it had a band class, all others then going to the host
 # aligner (PERF.md's kernel table keeps the time of that kernel)
 PREV_DEVICE_CELLS = 1 << 20
-
-# roofline of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
-# non-tensor-core fp32 rate, which also stands in for the int32 rate of
-# the three integer kernels
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
 
 
 def phase(name):
@@ -178,113 +196,25 @@ def compare(kernel, plain, calls, plain_calls=None):
     return err, ms, plain_ms
 
 
-def tensor_bytes(x) -> int:
-    import torch
-    if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
-    if isinstance(x, dict):
-        return sum(tensor_bytes(v) for v in x.values())
-    if isinstance(x, (tuple, list)):
-        return sum(tensor_bytes(v) for v in x)
-    return 0
-
-
-# operations per DP cell counted for the bound: the recurrence's own
-# adds, compares and selects, no index arithmetic
-FLANK_OPS_PER_CELL = 30      # D, diag, N, scan, I, H and four payloads
-EDIT_OPS_PER_CELL = 5        # compare, add, two mins, add
-E2E_OPS_PER_CELL = 14        # D, diag, N, scan, I, H and the bit packing
-
-
-def work_flank(args):
-    pattern, text, lens = args[:3]
-    rows = (pattern != 0).sum(dim=1).double()
-    cells = float((rows * (lens.double() + 1)).sum())
-    return cells * FLANK_OPS_PER_CELL
-
-
-def work_viterbi(args):
-    # one add and one compare per real edge of the row's HMM and position:
-    # an edge into an emitting state is relaxed once across positions, an
-    # edge into a silent state once in its level
-    _tokens, tables, lens, _ends, _num_levels = args
-    edges = tables["e_off"][:, -1].double()                        # (U,)
-    return float((lens.double() * edges[tables["u_map"].long()]).sum()) * 2.0
-
-
-def work_editdist(args):
-    a, b, len_a, len_b = args
-    return float((len_a.double() * len_b.double()).sum()) * EDIT_OPS_PER_CELL
-
-
-def cells_e2e(args):
-    """DP cells of one call of either e2e class: the full matrix's, or (a
-    fifth tensor: the band slack) those of each problem's band that lie
-    inside its matrix's rows."""
-    import torch
-    from trgt_tpu_torch.kernels.e2e import band_geometry
-    len_p, len_t = args[2].double(), args[3].double()
-    if not isinstance(args[4], torch.Tensor):
-        return float(((len_p + 1) * (len_t + 1)).sum())
-    wb = band_geometry(len_p, len_t, args[4].double())[2]
-    return float(((len_p + 1) * torch.minimum(wb, len_t + 1)).sum())
-
-
-def work_e2e(args):
-    return cells_e2e(args) * E2E_OPS_PER_CELL
-
-
-def bytes_e2e(args, out) -> int:
-    # what the function must move: both sequences at their true lengths
-    # and the two lengths in; the score, the run count and the CIGAR runs
-    # out. The direction bits are the kernel's working state between scan
-    # and traceback and the padding is the wrapper's, so neither counts.
-    len_p, len_t = args[2], args[3]
-    n_runs = out[3]
-    return int(len_p.sum() + len_t.sum()) + 8 * len_p.numel() + \
-        8 * n_runs.numel() + 4 * int(n_runs.sum())
-
-
-def bound_ms(kernel, work, calls, io_bytes=None):
-    """The least time the card could take for these calls: the larger of
-    bytes (every input read once, every output written once: the tensors
-    as the function takes and returns them, or `io_bytes(args, out)`) over
-    the HBM rate and operations over the fp32/int32 rate."""
-    n_bytes, n_ops = 0, 0.0
-    for args in calls:
-        out = kernel(*args)
-        n_bytes += (io_bytes(args, out) if io_bytes
-                    else tensor_bytes(args) + tensor_bytes(out))
-        n_ops += work(args)
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_OPS_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", n_bytes, n_ops)
-
-
 def kernel_table():
     from trgt_tpu_torch.kernels import e2e, editdist
     from trgt_tpu_torch.kernels import semiglobal as sg
     from trgt_tpu_torch.kernels import viterbi as vt
     return {
         "flank": dict(module=sg, fn="flank_align", plain=sg.flank_align_plain,
-                      work=work_flank,
                       source="trgt_tpu_torch/csrc/flank.cu",
                       replaces="trgt_tpu/kernels/semiglobal_pallas.py:79",
                       also_replaces="trgt_tpu/kernels/"
                                     "semiglobal_pallas.py:220"),
         "viterbi": dict(module=vt, fn="viterbi_segs", plain=vt.viterbi_plain,
-                        work=work_viterbi,
                         source="trgt_tpu_torch/csrc/viterbi.cu",
                         replaces="trgt_tpu/kernels/viterbi.py:217"),
         "editdist": dict(module=editdist, fn="edit_distances",
                          plain=editdist.edit_distances_plain,
-                         work=work_editdist,
                          source="trgt_tpu_torch/csrc/editdist.cu",
                          replaces="trgt_tpu/kernels/editdist_pallas.py:41"),
         "e2e": dict(module=e2e, fn="e2e_scan", plain=e2e.e2e_scan_plain,
                     band_fn="e2e_banded", band_plain=e2e.e2e_banded_plain,
-                    work=work_e2e, io_bytes=bytes_e2e,
                     source="trgt_tpu_torch/csrc/e2e.cu",
                     replaces="trgt_tpu/kernels/e2e_device.py:40"),
     }
@@ -753,7 +683,7 @@ def records(prefix: str):
 
 def run_genotype(dsdir: str, reads: str, device: str, preset: str,
                  repeats: str = "repeats.bed", name: str = "",
-                 n_loci: int = N_LOCI):
+                 n_loci: int = N_LOCI, extra=()):
     from trgt_tpu_torch.cli import main
     from trgt_tpu_torch.engine import pipeline
     from trgt_tpu_torch.kernels import e2e
@@ -764,7 +694,7 @@ def run_genotype(dsdir: str, reads: str, device: str, preset: str,
     rc = main(["genotype", "--genome", os.path.join(dsdir, "ref.fasta"),
                "--repeats", os.path.join(dsdir, repeats),
                "--reads", os.path.join(dsdir, reads), "--preset", preset,
-               "--output-prefix", prefix, "--device", device])
+               "--output-prefix", prefix, "--device", device, *extra])
     if device == "cuda":
         import torch
         torch.cuda.synchronize()
@@ -783,11 +713,23 @@ def run_genotype(dsdir: str, reads: str, device: str, preset: str,
     return prefix
 
 
+def launch_counts(snap):
+    """{kernel: launches} of a telemetry snapshot, e2e's two classes
+    summed, and e2e_band: the band class's alone."""
+    from trgt_tpu_torch.kernels import telemetry
+    totals = telemetry.totals(snap)
+    out = {name: totals.get(name, {}).get("launches", 0)
+           for name in ("flank", "viterbi", "editdist", "e2e")}
+    out["e2e_band"] = snap.get("e2e_band", {}).get("launches", 0)
+    return out
+
+
 def drive_path(dsdir, reads, preset, expect):
-    """Genotype with --device cuda (kernel inputs captured, launch counts
+    """Genotype with --device cuda (kernel inputs captured, the counters
     set to 0 just before and read just after) and --device host; the two
     must write identical records and every kernel in `expect` must have
-    been launched. Returns (launches, captures)."""
+    been launched. Returns (launches, the run's counters, captures)."""
+    from trgt_tpu_torch.kernels import telemetry
     table = kernel_table()
     caps = {name: Capture(k["module"], k["fn"]) for name, k in table.items()}
     # the (hmms, queries) of every Viterbi call, for the plain version's
@@ -799,18 +741,22 @@ def drive_path(dsdir, reads, preset, expect):
     with contextlib.ExitStack() as stack:
         for cap in caps.values():
             stack.enter_context(cap)
-        for k in table.values():
-            k["module"].launches = 0
-        table["e2e"]["module"].band_launches = 0
+        telemetry.clear()
         cuda_prefix = run_genotype(dsdir, reads, DEVICE, preset)
-        launches = {name: k["module"].launches for name, k in table.items()}
-        band_launches = table["e2e"]["module"].band_launches
+        counts = telemetry.snapshot()
+    launches = launch_counts(counts)
+    band_launches = launches.pop("e2e_band")
     print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}"
           f" (e2e: {band_launches} of them the band class's)")
+    print(f"telemetry of the {preset} cuda run: {json.dumps(counts)}")
     if band_launches != len(caps["e2e_band"].calls) or \
             launches["e2e"] - band_launches != len(caps["e2e"].calls):
         raise AssertionError("the captured e2e calls do not pair with the "
                              "launch counts")
+    for cls, c in counts.items():
+        if c.get("calls", 0) != c.get("launches", 0):
+            raise AssertionError(f"{cls}: {c.get('calls', 0)} batches "
+                                 f"counted, {c.get('launches', 0)} launches")
     host_prefix = run_genotype(dsdir, reads, "host", preset)
     cuda_vcf, cuda_bam = records(cuda_prefix)
     host_vcf, host_bam = records(host_prefix)
@@ -827,7 +773,7 @@ def drive_path(dsdir, reads, preset, expect):
             raise AssertionError(f"the {name} kernel was never launched on "
                                  f"the {preset} path")
     launches["e2e_band"] = band_launches
-    return launches, caps
+    return launches, counts, caps
 
 
 def low_quality_reads(dsdir: str) -> str:
@@ -981,13 +927,16 @@ def replay_e2e(k, full_calls, band_calls):
         "prev_band_problems": sum(a[0].shape[0] for a in prev_band)}
 
 
-def replay(path, table, caps):
+def replay(path, table, caps, counts):
     """Every kernel launched on `path` against its plain version on the
     inputs the cuda run gave it; {kernel name: numbers of this replay}.
-    Time and bound cover every call, and every call is held: the Viterbi
-    calls over REPLAY_MAX_L through `hold_rows`, all else call by call."""
-    import torch
+    Time covers every call, and every call is held: the Viterbi calls
+    through `hold_rows`, in two batches split at REPLAY_MAX_L positions,
+    all else call by call. The
+    bound is the run's own counters' (`counts`, kernels/telemetry.py)."""
+    from trgt_tpu_torch.kernels import telemetry
     phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
+    totals = telemetry.totals(counts)
     out = {}
     for name, k in table.items():
         calls = caps[name].calls
@@ -1001,40 +950,39 @@ def replay(path, table, caps):
             if [len(q) for _, q in batches] != [a[0].shape[0] for a in calls]:
                 raise AssertionError("the captured Viterbi batches do not "
                                      "pair with the kernel's calls")
-            own = [i for i, a in enumerate(calls)
-                   if a[0].shape[1] <= REPLAY_MAX_L]
-            rest = [i for i in range(len(calls)) if i not in own]
-            err, _, plain_ms = compare(
-                kernel, k["plain"], [calls[i] for i in own],
-                dense_calls([batches[i] for i in own]))
-            if rest:
-                err_rows, ms_rows = hold_rows(
-                    kernel, k["plain"], [calls[i] for i in rest],
-                    [batches[i] for i in rest])
-                err, plain_ms = max(err, err_rows), plain_ms + ms_rows
+            short = [i for i, a in enumerate(calls)
+                     if a[0].shape[1] <= REPLAY_MAX_L]
+            rest = [i for i in range(len(calls)) if i not in short]
+            err, plain_ms = 0, 0.0
+            for group in (short, rest):
+                if group:
+                    err_rows, ms_rows = hold_rows(
+                        kernel, k["plain"], [calls[i] for i in group],
+                        [batches[i] for i in group])
+                    err, plain_ms = max(err, err_rows), plain_ms + ms_rows
             ms = kernel_ms(kernel, calls)
             prev_calls = [a for a in calls if a[0].shape[1] <= PREV_MAX_L]
-            extra = {"held_in_one_plain_batch": len(rest),
+            extra = {"held_in_plain_batches": [len(short), len(rest)],
                      "ms_prev_calls": kernel_ms(kernel, prev_calls),
                      "prev_calls": len(prev_calls)}
         elif name == "e2e":
             err, ms, plain_ms, extra = replay_e2e(k, calls,
                                                   caps["e2e_band"].calls)
             calls = calls + caps["e2e_band"].calls
-            kernel = lambda *args: getattr(
-                k["module"], k["band_fn" if isinstance(args[4], torch.Tensor)
-                               else "fn"])(*args)
         else:
             err, ms, plain_ms = compare(kernel, k["plain"], calls)
-        bound, bound_by, n_bytes, n_ops = bound_ms(kernel, k["work"], calls,
-                                                   k.get("io_bytes"))
+        c = totals[name]
+        if c["calls"] != len(calls):
+            raise AssertionError(f"{name}: {len(calls)} calls captured, "
+                                 f"{c['calls']} counted")
+        bound, bound_by = telemetry.bound_ms(name, c)
+        n_bytes = c.get("bytes_in", 0) + c.get("bytes_out", 0)
+        n_ops = telemetry.operations(name, c)
         if name == "e2e":
             # the bound of each class's calls alone
-            n_full = extra["full_calls"]
-            extra["full_bound_ms"] = bound_ms(
-                kernel, k["work"], calls[:n_full], k["io_bytes"])[0]
-            extra["band_bound_ms"] = bound_ms(
-                kernel, k["work"], calls[n_full:], k["io_bytes"])[0]
+            for cls in ("full", "band"):
+                extra[f"{cls}_bound_ms"] = telemetry.bound_ms(
+                    f"e2e_{cls}", counts.get(f"e2e_{cls}", {}))[0]
         print(f"{name}: {len(calls)} {path}-path calls timed and held "
               f"against the plain version in "
               f"{time.perf_counter() - t0:.1f} s: max_abs_err {err} "
@@ -1056,9 +1004,10 @@ def replay(path, table, caps):
                   f"problems up to {PREV_DEVICE_CELLS} bucketed cells",
                   flush=True)
         elif extra:
-            print(f"viterbi: the {extra['held_in_one_plain_batch']} calls "
-                  f"over {REPLAY_MAX_L} positions held row by row against "
-                  f"one plain batch of their rows, none left unheld; kernel "
+            print(f"viterbi: the {len(short)} calls up to and the "
+                  f"{len(rest)} over {REPLAY_MAX_L} positions held row by row "
+                  f"against two plain batches of their rows, none left "
+                  f"unheld; kernel "
                   f"{extra['ms_prev_calls']:.3f} ms over the "
                   f"{extra['prev_calls']} calls up to {PREV_MAX_L} "
                   f"positions", flush=True)
@@ -1082,16 +1031,17 @@ def phase_paths():
           f"{time.perf_counter() - t0:.1f} s")
     print(f"card: {gpu_name_power()}")
     table = kernel_table()
-    wgs_launches, caps = drive_path(dsdir, "reads.bam", "wgs",
-                                    ("flank", "viterbi", "e2e"))
-    wgs = replay("wgs", table, caps)
+    wgs_launches, counts, caps = drive_path(dsdir, "reads.bam", "wgs",
+                                            ("flank", "viterbi", "e2e"))
+    wgs = replay("wgs", table, caps, counts)
     del caps
 
     phase(f"targeted path: bench{N_LOCI} catalog, every second read rq "
           f"0.85, --preset targeted, --device cuda vs host")
     reads = low_quality_reads(dsdir)
-    launches, caps = drive_path(dsdir, reads, "targeted", tuple(table))
-    targeted = replay("targeted", table, caps)
+    launches, counts, caps = drive_path(dsdir, reads, "targeted",
+                                        tuple(table))
+    targeted = replay("targeted", table, caps, counts)
 
     kernels = []
     for name, k in table.items():
@@ -1186,12 +1136,12 @@ def phase_cram(dsdir: str):
           f"{os.path.getsize(os.path.join(dsdir, cram))} bytes "
           f"(the same reads as BAM: "
           f"{os.path.getsize(os.path.join(dsdir, bam))} bytes)")
-    table = kernel_table()
-    for k in table.values():
-        k["module"].launches = 0
+    from trgt_tpu_torch.kernels import telemetry
+    telemetry.clear()
     runs = {"cram_cuda": run_genotype(dsdir, cram, DEVICE, "wgs", bed,
                                       "smoke_cram_cuda", CRAM_LOCI)}
-    launches = {name: k["module"].launches for name, k in table.items()}
+    launches = launch_counts(telemetry.snapshot())
+    del launches["e2e_band"]
     print(f"kernel launches in the CRAM cuda run: {json.dumps(launches)}")
     for name in ("flank", "viterbi", "e2e"):
         if launches[name] <= 0:
@@ -1480,6 +1430,243 @@ def phase_merge_scale(dsdir: str):
         raise AssertionError(f"{n} merged records, {n_union} distinct sites")
 
 
+def bam_records(data: bytes):
+    """The length-prefixed records of BAM bytes after the header."""
+    out, off = [], 0
+    while off < len(data):
+        (size,) = struct.unpack_from("<i", data, off)
+        out.append(data[off:off + 4 + size])
+        off += 4 + size
+    return out
+
+
+def genotype_child(dsdir: str, reads: str, preset: str, name: str,
+                   threads: int, extra=()):
+    """`python -m trgt_tpu_torch -vv genotype ... -t N --device cuda` in a
+    child process, as a user runs it. Returns (prefix, wall seconds, the
+    workers' debug lines: {worker: {"ready": s, "done": s, "loci": n,
+    "stages": {...}, "kernels": telemetry snapshot}}, and with N > 1 the
+    parent's `pool_timeline`)."""
+    prefix = os.path.join(dsdir, name)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "trgt_tpu_torch", "-vv", "genotype",
+           "--genome", os.path.join(dsdir, "ref.fasta"),
+           "--repeats", os.path.join(dsdir, "repeats.bed"),
+           "--reads", os.path.join(dsdir, reads), "--preset", preset,
+           "--output-prefix", prefix, "--device", DEVICE, "-t",
+           str(threads), *extra]
+    epoch, t0 = time.time(), time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"genotype -t {threads} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return (prefix, wall, worker_lines(proc.stderr, threads),
+            pool_timeline(proc.stderr, epoch, wall) if threads > 1 else None)
+
+
+def worker_lines(stderr: str, threads: int):
+    """The `-t N` workers' debug lines of a `-vv` run's stderr: {worker:
+    {"ready": s, "done": s, "loci": n, "stages": {...}, "kernels":
+    telemetry snapshot}}, the seconds counted from its spawn."""
+    workers = {}
+    for line in stderr.splitlines():
+        m = re.match(r"\[worker (\d+)\] DEBUG worker ready ([\d.]+) s",
+                     line)
+        if m:
+            workers.setdefault(int(m[1]), {})["ready"] = float(m[2])
+        m = re.match(r"\[worker (\d+)\] DEBUG worker done ([\d.]+) s after "
+                     r"spawn: (\d+) loci, stages (\{.*?\}), kernels "
+                     r"(\{.*\})$", line)
+        if m:
+            workers.setdefault(int(m[1]), {}).update(
+                done=float(m[2]), loci=int(m[3]), stages=json.loads(m[4]),
+                kernels=json.loads(m[5]))
+    if threads > 1 and (len(workers) != threads or any(
+            "done" not in w for w in workers.values())):
+        raise AssertionError(f"-t {threads}: the workers' debug lines are "
+                             f"missing ({sorted(workers)})")
+    return workers
+
+
+def pool_timeline(stderr: str, t0: float, wall: float):
+    """Where the wall of a `-vv genotype -t N` child went, from the
+    parent's `worker pool:` line (the spawn's epoch, the last end-of-stream
+    and the last worker exit after it) and `t0`, the epoch at which the
+    child was started: {"parent_start": s before the spawn, "eos": s,
+    "exit": s after the spawn, "parent_end": s after the last exit}."""
+    m = re.search(r"worker pool: \d+ workers spawned at ([\d.]+) \(epoch\); "
+                  r"the last end-of-stream ([\d.]+) s and the last exit "
+                  r"([\d.]+) s after", stderr)
+    if not m:
+        raise AssertionError("the parent's worker pool line is missing")
+    start = float(m[1]) - t0
+    eos, exit_ = float(m[2]), float(m[3])
+    return {"parent_start": round(start, 3), "eos": eos, "exit": exit_,
+            "parent_end": round(wall - start - exit_, 3)}
+
+
+POOL_THREADS = (1, 2, 4)
+
+
+def phase_pool():
+    """A catalog of the bench generator with POOL_MIN_LOCI loci a worker
+    at -t 4 (smaller ones run on threads), under both presets with `-t
+    1/2/4 --device cuda`, each a child process: -t 2 and -t 4 write the
+    records of -t 1, every worker that wrote a record launched the Viterbi
+    kernel, and the workers together launched every kernel of the path.
+    Returns the targeted -t 4 workers' launches."""
+    from trgt_tpu_torch.engine.runner import POOL_MIN_LOCI
+    from trgt_tpu_torch.utils.synth import cached_hetero_dataset
+    n_loci = POOL_MIN_LOCI * POOL_THREADS[-1]
+    phase(f"worker pool: bench{n_loci}, -t {'/'.join(map(str, POOL_THREADS))}"
+          f" --device cuda, wgs and targeted")
+    dsdir = cached_hetero_dataset(n_loci, seed=SEED, tag=f"bench{n_loci}",
+                                  root=DATA_ROOT)
+    paths = {"wgs": ("reads.bam", ("flank", "viterbi", "e2e")),
+             "targeted": (low_quality_reads(dsdir),
+                          ("flank", "viterbi", "editdist", "e2e"))}
+    pool_launches = None
+    for preset, (reads, expect) in paths.items():
+        runs = {t: genotype_child(dsdir, reads, preset,
+                                  f"smoke_pool_{preset}_t{t}", t)
+                for t in POOL_THREADS}
+        want = records(runs[1][0])
+        walls = {t: round(r[1], 3) for t, r in runs.items()}
+        print(f"{preset}: walls of the child process (torch import, CUDA "
+              f"contexts and worker start-up included) {json.dumps(walls)}"
+              f" s; loci/s " + json.dumps(
+                  {t: round(n_loci / w, 3) for t, w in walls.items()}))
+        for t in POOL_THREADS[1:]:
+            same = records(runs[t][0]) == want
+            workers = runs[t][2]
+            print(f"{preset} -t {t}: records == -t 1 {same}; per worker "
+                  f"(loci, ready s, done s): " + json.dumps(
+                      {w: (v["loci"], v.get("ready"), v["done"])
+                       for w, v in sorted(workers.items())})
+                  + f"; the parent (s) {json.dumps(runs[t][3])}")
+            if not same:
+                raise AssertionError(f"-t {t} records differ from -t 1 "
+                                     f"({preset})")
+            launched = {}
+            for w, v in sorted(workers.items()):
+                counts = launch_counts(v["kernels"])
+                print(f"  worker {w} launches {json.dumps(counts)}")
+                if v["loci"] and not counts["viterbi"]:
+                    raise AssertionError(f"worker {w} wrote records without "
+                                         f"a Viterbi launch")
+                for name, n in counts.items():
+                    launched[name] = launched.get(name, 0) + n
+            missing = [name for name in expect if not launched[name]]
+            if missing:
+                raise AssertionError(f"-t {t} {preset}: no worker launched "
+                                     f"{missing}")
+            if preset == "targeted" and t == POOL_THREADS[-1]:
+                pool_launches = launched
+    return pool_launches
+
+
+def phase_mesh(dsdir: str):
+    """`engine.sharding.dryrun(2, "cuda")` over [cuda:0, cuda:0], then
+    bench96 wgs under that mesh: the records of phase 7, with flank,
+    Viterbi and e2e launched on both shards."""
+    import torch
+    from trgt_tpu_torch import mesh
+    from trgt_tpu_torch.engine.sharding import dryrun
+    phase("mesh: [cuda:0, cuda:0], the dry run and bench96 wgs")
+    if os.environ.pop("TRGT_TPU_MESH", None) is not None:
+        print("TRGT_TPU_MESH was set; unset for this phase")
+    t0 = time.perf_counter()
+    dryrun(2, DEVICE)
+    print(f"sharding.dryrun(2, {DEVICE!r}): the VCF body over the mesh == "
+          f"--device host ({time.perf_counter() - t0:.1f} s)")
+    from trgt_tpu_torch.kernels import telemetry
+    dev = torch.device(DEVICE, 0)
+    mesh.set_mesh([dev, dev])
+    try:
+        telemetry.clear()
+        prefix = run_genotype(dsdir, "reads.bam", DEVICE, "wgs",
+                              name="smoke_wgs_mesh")
+        launches = launch_counts(telemetry.snapshot())
+        shards = telemetry.by_shard()
+        installed = mesh.current_mesh()
+    finally:
+        mesh.disable_mesh()
+    by_shard = {name: [launch_counts(shards.get(k, {}))[name]
+                       for k in range(2)] for name in launches}
+    same = records(prefix) == records(
+        os.path.join(dsdir, f"smoke_wgs_{DEVICE}"))
+    print(f"bench{N_LOCI} wgs under the mesh {installed}: records == the "
+          f"run without the mesh {same}; launches by shard "
+          f"{json.dumps(by_shard)}; the wrappers' launches "
+          f"{json.dumps(launches)}")
+    if not same or installed != [dev, dev]:
+        raise AssertionError("the mesh run differs from the run without it")
+    for name, per_shard in by_shard.items():
+        if sum(per_shard) != launches[name]:
+            raise AssertionError(f"{name}: {per_shard} launches by shard, "
+                                 f"{launches[name]} in all")
+    for name in ("flank", "viterbi", "e2e"):
+        if not all(by_shard[name]):
+            raise AssertionError(f"{name} was not launched on both shards")
+    return by_shard
+
+
+PLOIDY_CASES = (
+    ("haploid", "chrX", ("X1", "CAG", 10, (14, 14)), ["--karyotype", "XY"],
+     "1"),
+    ("zero_ploidy", "chrY", ("Y1", "CAG", 10, (10, 10)), [], "./."),
+)
+
+
+def phase_ploidy_shards(dsdir: str):
+    """Under --device cuda and host: a haploid chrX locus under
+    --karyotype XY and a zero-ploidy chrY locus (equal records, the
+    expected GT); a 3-way --shard-index/--shard-count split of bench96
+    wgs whose records together are phase 7's."""
+    from trgt_tpu_torch.kernels import telemetry
+    from trgt_tpu_torch.utils.synth import SynthLocus, make_dataset
+    phase("karyotype and catalog shards under --device cuda")
+    for name, chrom, locus, extra, gt in PLOIDY_CASES:
+        d = os.path.join(DATA_ROOT, f"smoke_{name}")
+        os.makedirs(d, exist_ok=True)
+        make_dataset(d, [SynthLocus(*locus)], depth=10, chrom=chrom,
+                     error_rate=0.01)
+        telemetry.clear()
+        got = {device: records(run_genotype(
+            d, "reads.bam", device, "wgs", name=f"out_{device}", n_loci=1,
+            extra=extra)) for device in (DEVICE, "host")}
+        launches = launch_counts(telemetry.snapshot())
+        line = got[DEVICE][0].splitlines()[-1].split("\t")
+        sample = dict(zip(line[8].split(":"), line[9].split(":")))
+        print(f"{name} ({chrom} {' '.join(extra) or '--karyotype XX'}): GT "
+              f"{sample['GT']}, cuda == host {got[DEVICE] == got['host']}; "
+              f"launches {json.dumps(launches)}")
+        if got[DEVICE] != got["host"] or sample["GT"] != gt:
+            raise AssertionError(f"{name}: GT {sample['GT']} (want {gt}) or "
+                                 f"cuda != host")
+    full_vcf, full_bam = records(os.path.join(dsdir, "smoke_wgs_host"))
+    lines, recs = [], []
+    for k in range(3):
+        vcf, bam = records(run_genotype(
+            dsdir, "reads.bam", DEVICE, "wgs", name=f"smoke_shard{k}",
+            n_loci=N_LOCI // 3, extra=["--shard-index", str(k),
+                                       "--shard-count", "3"]))
+        lines += vcf.splitlines()[1:]
+        recs += bam_records(bam)
+    want = full_vcf.splitlines()[1:]
+    same = sorted(lines) == sorted(want) and \
+        sorted(recs) == sorted(bam_records(full_bam))
+    print(f"3 catalog shards under cuda: {len(lines)} VCF records, "
+          f"{len(recs)} BAM records; together == the unsharded host run "
+          f"{same}")
+    if not same or len(lines) != N_LOCI:
+        raise AssertionError("the catalog shards do not add up to the "
+                             "unsharded run")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1506,6 +1693,22 @@ def main() -> int:
         fn(dsdir)
         print(f"   ({time.perf_counter() - t0:.1f} s)")
     print(f"CRAM, commands and merge-at-scale phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    t0 = time.perf_counter()
+    pool_launches = phase_pool()
+    print(f"   ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh(dsdir)
+    print(f"   ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_ploidy_shards(dsdir)
+    print(f"   ({time.perf_counter() - t0:.1f} s)")
+    for entry in kernels:
+        entry["pool_path"] = {"launches": pool_launches[entry["name"]]}
+        entry["mesh_path"] = {"launches_by_shard":
+                              mesh_launches[entry["name"]]}
+    print(f"worker pool, mesh, karyotype and shard phases: "
           f"{time.perf_counter() - t_new:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_name_power())

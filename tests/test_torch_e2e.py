@@ -16,6 +16,7 @@ import torch
 
 from trgt_tpu.kernels.align_host import align_end_to_end
 from trgt_tpu_torch.kernels import e2e
+from trgt_tpu_torch.kernels import telemetry
 
 # The JAX package is imported inside the tests that compare with it, so
 # the `cuda` test of this file also runs where JAX is not installed:
@@ -756,9 +757,11 @@ def test_cuda_kernel_matches_plain_and_host():
     near = random_dna(rng, 2000, 2000)
     pairs += [(near, near[:900] + near[1000:]), (near[:1500], near)]
     for scoring in ((2, 5, 1), (1, 0, 1)):
-        before = e2e.launches, e2e.band_launches
+        before = (telemetry.count("e2e_full"),
+                  telemetry.count("e2e_band"))
         got = e2e.e2e_align_batch(pairs, *scoring, dev)
-        assert e2e.launches > before[0] and e2e.band_launches > before[1]
+        assert telemetry.count("e2e_full") > before[0] and \
+            telemetry.count("e2e_band") > before[1]
         assert got == [align_end_to_end(a, b, *scoring) for a, b in pairs]
         args = [torch.from_numpy(x).to(dev)
                 for x in e2e.encode_problems(pairs[:-2])]

@@ -14,6 +14,7 @@ import torch
 
 from trgt_tpu.kernels.align_host import edit_distance
 from trgt_tpu_torch.kernels import editdist as ed
+from trgt_tpu_torch.kernels import telemetry
 
 # The JAX package is imported inside the tests that compare with it, so
 # the `cuda` test of this file also runs where JAX is not installed:
@@ -210,9 +211,9 @@ def test_cuda_kernel_matches_plain_and_host():
     for la in (31, 32, 33, 63, 64, 65, 99, 100):
         pairs.append((random_dna(rng, la, la),
                       random_dna(rng, 10000 // la, 10000 // la)))
-    before = ed.launches
+    before = telemetry.count("editdist")
     got = ed.edit_distances_batch(pairs, dev)
-    assert ed.launches > before
+    assert telemetry.count("editdist") > before
     assert got == [edit_distance(a, b) for a, b in pairs]
     norm = [(a, b) if len(a) <= len(b) else (b, a) for a, b in pairs[:600]]
     args = [torch.from_numpy(x).to(dev) for x in ed.encode_pairs(norm, 128)]

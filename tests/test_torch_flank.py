@@ -18,6 +18,7 @@ import torch
 
 from trgt_tpu.kernels.align_host import align_ends_free_text
 from trgt_tpu_torch.kernels import semiglobal as sg
+from trgt_tpu_torch.kernels import telemetry
 
 # The JAX package is imported inside the tests that compare with it, so
 # the `cuda` tests of this file also run where JAX is not installed:
@@ -246,7 +247,7 @@ def test_wrapper_rejects_other_devices():
 def test_cuda_kernel_matches_plain(cuda_device):
     patterns, texts = fuzz_problems(7, 300, 250, [30, 300, 700, 5000,
                                                   16384])
-    launches = sg.launches
+    launches = telemetry.count("flank")
     for width in sorted({len(t) + 1 for t in texts}):
         idx = [i for i, t in enumerate(texts) if len(t) + 1 == width]
         pat, txt, lens = sg.encode_problems([patterns[i] for i in idx],
@@ -256,7 +257,7 @@ def test_cuda_kernel_matches_plain(cuda_device):
         got = sg.flank_align(*args, 2, 6, 1).cpu()
         want = sg.flank_align_plain(*args, 2, 6, 1).cpu()
         np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert sg.launches > launches
+    assert telemetry.count("flank") > launches
 
 
 @pytest.mark.cuda
@@ -265,7 +266,7 @@ def test_cuda_kernel_class_edges(cuda_device, edge):
     patterns, texts = edge_problems(edge, 250, edge)
     patterns += [patterns[0]] * 2
     texts += [b"", b"A"]
-    launches = sg.launches
+    launches = telemetry.count("flank")
     got = sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, cuda_device)
-    assert sg.launches > launches
+    assert telemetry.count("flank") > launches
     assert got == sg.flank_align_batch_multi(patterns, texts, 2, 5, 1, CPU)

@@ -4,6 +4,7 @@
 as `trgt_tpu genotype --device host` on the same synthetic data, for the
 size and cluster genotypers and the targeted preset."""
 
+import logging
 import os
 import struct
 
@@ -19,6 +20,7 @@ from trgt_tpu.utils.synth import (SynthLocus, adversarial_loci,
 from trgt_tpu_torch import device as device_mod
 from trgt_tpu_torch.cli import main as port_main
 from trgt_tpu_torch.engine import pipeline as port_pipeline
+from trgt_tpu_torch.engine import runner as port_runner
 
 # the plain versions issue many tiny ops: with several test workers on
 # one machine, more than one intra-op thread each oversubscribes the cores
@@ -182,16 +184,21 @@ def test_cuda_matches_port_host(request, data, preset):
     # wgs drops reads under rq 0.98, so it gets the unmodified reads
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from trgt_tpu_torch.kernels import e2e, editdist, semiglobal, viterbi
+    from trgt_tpu_torch.kernels import telemetry
     dataset = request.getfixturevalue(data)
-    modules = [semiglobal, viterbi, e2e]
+    kernels = ["flank", "viterbi", "e2e"]
     if preset == "targeted":
-        modules.append(editdist)       # the cluster genotyper's distances
-    before = [m.launches for m in modules]
+        kernels.append("editdist")     # the cluster genotyper's distances
+
+    def launches():
+        totals = telemetry.totals(telemetry.snapshot())
+        return [totals.get(k, {}).get("launches", 0) for k in kernels]
+
+    before = launches()
     extra = ["--preset", preset]
     got = genotype(port_main, dataset, f"port_{data}_cuda",
                    extra + ["--device", "cuda"])
-    assert all(m.launches > n for m, n in zip(modules, before))
+    assert all(n > b for n, b in zip(launches(), before))
     want = genotype(port_main, dataset, f"port_{data}_host",
                     extra + ["--device", "host"])
     assert len(want[0]) > 1 and len(want[1]) > 0
@@ -242,3 +249,104 @@ def test_device_modes():
     assert device_mod.resolve_device("host") is None
     with pytest.raises(ValueError):
         device_mod.resolve_device("tpu")
+
+
+# the cases of tests/test_synthetic_e2e.py:89-131: a haploid chrX locus
+# under --karyotype XY, a zero-ploidy chrY locus under XX, a karyotype
+# file, and bad catalog lines (start >= end; a contig the FASTA lacks)
+PLOIDY_CASES = {
+    "xy_haploid": ("chrX", SynthLocus("X1", "CAG", 10, (14, 14)),
+                   ["--karyotype", "XY"], "1"),
+    "zero_ploidy": ("chrY", SynthLocus("Y1", "CAG", 10, (10, 10)), [],
+                    "./."),
+    "karyotype_file": ("chrQ", SynthLocus("C1", "CAG", 10, (13, 13)),
+                       ["--karyotype", "{td}/karyo.txt"], "1"),
+    "bad_catalog_lines": ("chrS", SynthLocus("OK", "CAG", 10, (10, 10)), [],
+                          "0/0"),
+}
+BAD_LINES = ("chrS\t10\t5\tID=BAD;MOTIFS=CAG;STRUC=<TR>\n"
+             "chrMISSING\t500\t600\tID=BAD2;MOTIFS=CAG;STRUC=<TR>\n")
+
+
+@pytest.fixture(scope="module")
+def ploidy_datasets(tmp_path_factory):
+    out = {}
+    for case, (chrom, locus, extra, _gt) in PLOIDY_CASES.items():
+        td = str(tmp_path_factory.mktemp(f"torch_{case}"))
+        fasta, bed, bam = make_dataset(td, [locus], depth=10, chrom=chrom)
+        with open(os.path.join(td, "karyo.txt"), "w") as fh:
+            fh.write("chrQ 1\n")
+        if case == "bad_catalog_lines":
+            with open(bed, "a") as fh:
+                fh.write(BAD_LINES)
+        out[case] = ((td, fasta, bed, bam),
+                     [x.format(td=td) for x in extra])
+    return out
+
+
+@pytest.mark.parametrize("port_device", ["cpu", "host"])
+@pytest.mark.parametrize("case", list(PLOIDY_CASES))
+def test_ploidy_and_catalog_cases_match_trgt_tpu_host(ploidy_datasets,
+                                                      case, port_device):
+    dataset, extra = ploidy_datasets[case]
+    want = genotype(trgt_tpu_main, dataset, f"ref_{case}",
+                    extra + ["--device", "host"])
+    got = genotype(port_main, dataset, f"port_{case}_{port_device}",
+                   extra + ["--device", port_device])
+    assert got == want
+    # one record: the bad lines are skipped, the zero-ploidy locus is
+    # written without a call
+    assert len(want[0]) == 2
+    sample = dict(zip(want[0][1].split("\t")[8].split(":"),
+                      want[0][1].split("\t")[9].split(":")))
+    assert sample["GT"] == PLOIDY_CASES[case][3]
+
+
+def test_pool_counts_catalog_errors_as_t1(ploidy_datasets, caplog,
+                                          monkeypatch):
+    """Every worker parses the whole catalog; the parent reports the
+    errors of one pass, as `-t 1` does."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(port_runner, "POOL_MIN_LOCI", 0)
+    dataset, _extra = ploidy_datasets["bad_catalog_lines"]
+    caplog.set_level(logging.INFO, logger="trgt")
+    counts = []
+    for threads in ("1", "3"):
+        caplog.clear()
+        got = genotype(port_main, dataset, f"port_errors_t{threads}",
+                       ["--device", "host", "-t", threads])
+        counts += [r.getMessage() for r in caplog.records
+                   if r.getMessage().startswith("Processed")]
+    assert counts == ["Processed 1 loci (2 errors)"] * 2
+    assert got == genotype(trgt_tpu_main, dataset, "ref_errors",
+                           ["--device", "host"])
+
+
+@pytest.fixture(scope="module")
+def seven_loci(tmp_path_factory):
+    # the loci of tests/test_synthetic_e2e.py:148-168
+    td = str(tmp_path_factory.mktemp("torch_shards"))
+    loci = [SynthLocus(f"S{i}", "CAG", 10 + i, (10 + i, 10 + i))
+            for i in range(7)]
+    return (td, *make_dataset(td, loci, depth=8))
+
+
+@pytest.mark.parametrize("port_device", ["cpu", "host"])
+def test_catalog_shards_cover_the_full_run(seven_loci, port_device):
+    """3-way `--shard-index/--shard-count`: each shard equals
+    `trgt_tpu`'s, and the shards' records together are the full run's."""
+    full = genotype(port_main, seven_loci, f"port_full_{port_device}",
+                    ["--device", port_device])
+    union = []
+    for shard in range(3):
+        extra = ["--shard-index", str(shard), "--shard-count", "3"]
+        got = genotype(port_main, seven_loci,
+                       f"port_shard{shard}_{port_device}",
+                       extra + ["--device", port_device])
+        want = genotype(trgt_tpu_main, seven_loci, f"ref_shard{shard}",
+                        extra + ["--device", "host"])
+        assert got == want
+        assert got[0][0] == full[0][0]                  # the #CHROM line
+        union += got[0][1:]
+    assert sorted(union) == sorted(full[0][1:])
+    assert len(union) == 7

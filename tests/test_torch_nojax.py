@@ -1,7 +1,8 @@
 """The port never imports JAX nor anything of the JAX package `trgt_tpu`.
 tests/conftest.py imports JAX into every test process, so each run is
-checked in a subprocess: `genotype`, and `merge`, `plot` and `validate`
-on a genotype run's outputs (these three load no torch either)."""
+checked in a subprocess: `genotype`, the parent of a `genotype -t 2` run,
+and `merge`, `plot` and `validate` on a genotype run's outputs (these
+three load no torch either)."""
 
 import ast
 import os
@@ -18,6 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = r"""
 import sys
 from trgt_tpu_torch.cli import main
+from trgt_tpu_torch.engine import runner
+runner.POOL_MIN_LOCI = 0    # a two-locus catalog starts the pool
 rc = main(sys.argv[1:])
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "trgt_tpu"))
@@ -43,11 +46,11 @@ def _run_child(argv, torch_loaded):
     return proc
 
 
-def _run_genotype_child(tmp_path, device, *extra):
+def _run_genotype_child(tmp_path, device, *extra, torch_loaded=True):
     fasta, bed, bam = _dataset(tmp_path)
     _run_child(["genotype", "--genome", fasta, "--repeats", bed, "--reads",
                 bam, "--output-prefix", str(tmp_path / "out"), "--device",
-                device, *extra], True)
+                device, *extra], torch_loaded)
     assert (tmp_path / "out.vcf.gz").exists()
 
 
@@ -59,6 +62,15 @@ def test_genotype_run_imports_no_jax(tmp_path, device):
 @pytest.mark.parametrize("device", ["cpu", "host"])
 def test_targeted_run_imports_no_jax_and_no_trgt_tpu(tmp_path, device):
     _run_genotype_child(tmp_path, device, "--preset", "targeted")
+
+
+@pytest.mark.parametrize("device", ["cpu", "host"])
+def test_pool_parent_imports_no_jax_and_no_torch(tmp_path, device,
+                                                 monkeypatch):
+    """`-t 2`: the parent only merges its workers' records (they import
+    torch; the parent checks `--device` without it on cpu and host)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    _run_genotype_child(tmp_path, device, "-t", "2", torch_loaded=False)
 
 
 @pytest.mark.parametrize("command", ["merge", "plot", "validate"])

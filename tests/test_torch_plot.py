@@ -4,10 +4,12 @@ motif and methylation colouring, squished or not, on the port's own
 `genotype` outputs. Then the segmentation goldens of
 tests/test_plot_goldens.py, for both packages."""
 
+import hashlib
 import importlib
 import os
 import re
 import sys
+import types
 import xml.etree.ElementTree as ET
 import zlib
 
@@ -91,12 +93,44 @@ def test_plot_colours(genotyped, tmp_path):
 
 @pytest.mark.parametrize("pkg", PACKAGES)
 def test_png_without_pillow_fails(genotyped, tmp_path, monkeypatch, pkg):
-    """PNG goes through Pillow alone: without it, `plot` fails and writes
-    no image, in both packages."""
+    """Where cairosvg does not import, PNG goes through Pillow: without it
+    too, `plot` fails and writes no image, in both packages."""
     monkeypatch.setitem(sys.modules, "PIL", None)
     out = str(tmp_path / "x.png")
     assert plot(MAINS[pkg], genotyped, out, "ONE") == 1
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("plot_type", ["allele", "waterfall"])
+@pytest.mark.parametrize("tr_id", ["ONE", "TWO"])
+def test_png_through_cairosvg_where_it_imports(genotyped, tmp_path,
+                                               monkeypatch, tr_id,
+                                               plot_type):
+    """With a `cairosvg` module importable (a stub here), both packages
+    hand it the plot's SVG and write what it renders, not Pillow's
+    raster."""
+    calls = []
+
+    def svg2png(bytestring, write_to):
+        calls.append(bytestring)
+        with open(write_to, "wb") as fh:
+            fh.write(b"\x89PNG\r\n\x1a\n"
+                     + hashlib.sha256(bytestring).digest())
+
+    stub = types.ModuleType("cairosvg")
+    stub.svg2png = svg2png
+    monkeypatch.setitem(sys.modules, "cairosvg", stub)
+    extra = ["--plot-type", plot_type]
+    images = {}
+    for pkg in PACKAGES:
+        out = str(tmp_path / f"{pkg}.png")
+        assert plot(MAINS[pkg], genotyped, out, tr_id, *extra) == 0
+        images[pkg] = open(out, "rb").read()
+    svg = str(tmp_path / "plot.svg")
+    assert plot(port_main, genotyped, svg, tr_id, *extra) == 0
+    assert calls == [open(svg, "rb").read()] * 2
+    assert images["trgt_tpu_torch"] == images["trgt_tpu"] == \
+        b"\x89PNG\r\n\x1a\n" + hashlib.sha256(calls[0]).digest()
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)

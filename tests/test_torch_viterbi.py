@@ -19,6 +19,7 @@ import torch
 
 from trgt_tpu.hmm import build_hmm
 from trgt_tpu_torch.kernels import viterbi as vt
+from trgt_tpu_torch.kernels import telemetry
 from trgt_tpu_torch.kernels import viterbi_tables as tables
 
 CPU = torch.device("cpu")
@@ -482,7 +483,7 @@ def test_cuda_batches_get_sparse_tables():
 def test_cuda_kernel_matches_plain(cuda_device):
     rng = random.Random(3)
     motif_sets = [[b"CAG"], [b"CAG", b"A"], [b"AATGG", b"CCATTTTAGG"]]
-    launches = vt.launches
+    launches = telemetry.count("viterbi")
     for ms in motif_sets:
         hmm = build_hmm(ms)
         queries = [random_repeat(rng, ms, n, 0.05) for n in (3, 30, 300)]
@@ -492,7 +493,7 @@ def test_cuda_kernel_matches_plain(cuda_device):
         want = vt.viterbi_plain(*vt.prepare_batch(
             [hmm] * 3, queries, cuda_device, sparse=False)).cpu().numpy()
         np.testing.assert_array_equal(got, want)
-    assert vt.launches > launches
+    assert telemetry.count("viterbi") > launches
 
 
 @pytest.mark.cuda

@@ -14,12 +14,20 @@ names.
                      reader and writer; io/cram_write.py a CRAM writer
                      that no command uses: tests and chip_smoke.py write
                      CRAM inputs with it)
+  kernels/telemetry.py
+                     launches, DP cells and bytes of every kernel
+  mesh.py            batches of kernel problems cut over several devices
   engine/pipeline.py BatchPipeline: every device stage on the port's
                      kernels, or on the host twins with --device host
-  engine/runner.py   the genotype driver
+  engine/runner.py   run_genotype; with -t N the parent of N
+                     worker processes (engine/worker.py)
+  engine/batch.py    DeviceEngine: the device hooks of the per-locus
+                     workflow.analyze_tr
+  engine/sharding.py dryrun: genotype over a device mesh == the host run
   engine/validate.py the catalog validator
   merge/             streaming k-way VCF/BCF merge
-  plot/              allele and waterfall plots (SVG, PDF; PNG by Pillow)
+  plot/              allele and waterfall plots (SVG, PDF; PNG by cairosvg
+                     where it imports, else Pillow)
   cli.py             `python -m trgt_tpu_torch {genotype,validate,merge,
                      plot} ...`; merge, plot and validate are host code,
                      as in trgt_tpu, and never load torch

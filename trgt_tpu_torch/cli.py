@@ -47,7 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
                    required=True)
     g.add_argument("-k", "--karyotype", default="XX")
     g.add_argument("-t", "--threads", dest="num_threads", type=int, default=1,
-                   help="Read-extraction threads")
+                   help="Worker processes, each on --device, where the "
+                        "catalog holds enough loci for each (engine/runner.py "
+                        "POOL_MIN_LOCI); otherwise, and with "
+                        "TRGT_TPU_PROCS=0, read-extraction threads of one "
+                        "process")
     g.add_argument("--preset", default="wgs", choices=["wgs", "targeted"])
     g.add_argument("--sample-name", dest="sample_name", default=None)
     g.add_argument("--genotyper", default=None, choices=["size", "cluster"])

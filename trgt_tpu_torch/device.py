@@ -15,18 +15,27 @@ from typing import Optional
 DEVICE_MODES = ("cuda", "cpu", "host")
 
 
+def check_mode(mode: str) -> None:
+    """Raise for an unknown mode, and for `cuda` when PyTorch sees no GPU.
+    Opens no CUDA context: the `-t N` parent checks with it and leaves the
+    card to its workers."""
+    if mode not in DEVICE_MODES:
+        raise ValueError(f"unknown device mode {mode!r}; expected one of "
+                         f"{DEVICE_MODES}")
+    if mode == "cuda":
+        import torch
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda: PyTorch sees no CUDA device")
+
+
 def resolve_device(mode: str) -> Optional["torch.device"]:
     """torch.device for `cuda`/`cpu`, None for `host`. torch is imported
     here, not with the module: `merge`, `plot` and `validate` import the
     CLI and never load it."""
-    import torch
-    if mode == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda: PyTorch sees no CUDA device")
-        return torch.device("cuda", torch.cuda.current_device())
-    if mode == "cpu":
-        return torch.device("cpu")
+    check_mode(mode)
     if mode == "host":
         return None
-    raise ValueError(f"unknown device mode {mode!r}; expected one of "
-                     f"{DEVICE_MODES}")
+    import torch
+    if mode == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")

@@ -60,6 +60,7 @@ of P+T steps.
 """
 
 import os
+import threading
 import time
 from collections import Counter
 from typing import List, Optional, Sequence, Tuple
@@ -67,13 +68,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import mesh
+from . import telemetry
 from .align_host import _NATIVE_TB_BYTES, align_end_to_end
 from .bucket import bucket
 
-# times a CUDA kernel of either class was launched (chip_smoke.py resets and
-# reads it), and of them the band class's launches
-launches = 0
-band_launches = 0
 # problems and DP cells ((len_p + 1) * (len_t + 1)) that e2e_align_batch
 # sent each way: kernel_* (full-matrix class), band_problems and
 # band_full_cells (the band class's problems and the cells of their full
@@ -81,8 +80,9 @@ band_launches = 0
 # every pass), band_relaunches (passes after a problem's first),
 # host_problems and host_cells (over the band's caps, or gape <= 0),
 # empty_problems; host_seconds is the wall time the host-routed alignments
-# took
+# took. Summed over the calls of a process, the mesh's shards included.
 routed: Counter = Counter()
+_ROUTED_LOCK = threading.Lock()
 
 CigarOps = List[Tuple[int, str]]
 
@@ -429,7 +429,6 @@ def _band_bits_rows(flat, P, width, half, lp, lt, band_w):
 
 def _e2e_scan_cuda(pattern, text, len_p, len_t, mism, gapo, gape, keep_bits):
     from ._build import check, get_lib
-    global launches
     _check_problem_tensors("e2e kernel", pattern, text, len_p, len_t)
     dev = text.device
     B, P, T = text.shape[0], pattern.shape[1], text.shape[1]
@@ -446,7 +445,7 @@ def _e2e_scan_cuda(pattern, text, len_p, len_t, mism, gapo, gape, keep_bits):
         len_t.data_ptr(), flat.data_ptr(), bits_size, score.data_ptr(),
         runs.data_ptr(), n_runs.data_ptr(), B, int(mism), int(gapo),
         int(gape), torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    telemetry.add("e2e_full", launches=1)
     check(rc, "e2e kernel launch")
     bits = _full_bits_rows(flat, P, T, strip, len_p.clamp(0, P),
                            len_t.clamp(0, T)) if keep_bits else None
@@ -456,7 +455,6 @@ def _e2e_scan_cuda(pattern, text, len_p, len_t, mism, gapo, gape, keep_bits):
 def _e2e_banded_cuda(pattern, text, len_p, len_t, band_w, width, mism, gapo,
                      gape, keep_bits):
     from ._build import check, get_lib
-    global launches, band_launches
     _check_problem_tensors("banded e2e kernel", pattern, text, len_p, len_t,
                            ("band_w", band_w, torch.int32))
     dev = text.device
@@ -475,8 +473,7 @@ def _e2e_banded_cuda(pattern, text, len_p, len_t, band_w, width, mism, gapo,
         score.data_ptr(), runs.data_ptr(), n_runs.data_ptr(),
         certified.data_ptr(), B, int(mism), int(gapo), int(gape),
         torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    band_launches += 1
+    telemetry.add("e2e_band", launches=1)
     check(rc, "banded e2e kernel launch")
     bits = _band_bits_rows(flat, P, width, half, len_p.clamp(0, P),
                            len_t.clamp(0, T), band_w.clamp(min=0)) \
@@ -543,7 +540,7 @@ def _chunks(groups, row_bytes):
             yield key, idxs[lo:lo + step]
 
 
-def _align_on_host(pattern_texts, idxs, results, mism, gapo, gape):
+def _align_on_host(pattern_texts, idxs, results, mism, gapo, gape, counts):
     t0 = time.perf_counter()
     align = lambda i: align_end_to_end(*pattern_texts[i], mism, gapo, gape)
     if len(idxs) > 1:
@@ -555,14 +552,23 @@ def _align_on_host(pattern_texts, idxs, results, mism, gapo, gape):
         host_results = [align(i) for i in idxs]
     for idx, r in zip(idxs, host_results):
         results[idx] = r
-    routed["host_seconds"] += time.perf_counter() - t0
+    counts["host_seconds"] += time.perf_counter() - t0
 
 
 def e2e_align_batch(pattern_texts: Sequence[Tuple[bytes, bytes]],
                     mism: int, gapo: int, gape: int, device: torch.device):
     """Batched global affine alignment on `device`; returns [(score,
     cigar)] with '='/'X'/'I'/'D' ops ('I' consumes text, 'D' consumes
-    pattern), equal to `trgt_tpu.kernels.e2e_device.e2e_align_batch`."""
+    pattern), equal to `trgt_tpu.kernels.e2e_device.e2e_align_batch`.
+    While a mesh is installed, the problems are cut into one contiguous
+    shard per mesh device, and `routed` sums the shards' counts."""
+    return mesh.shard_map(
+        lambda pts, dev: _e2e_align_batch(pts, mism, gapo, gape, dev),
+        device, pattern_texts)
+
+
+def _e2e_align_batch(pattern_texts, mism, gapo, gape, device):
+    counts = Counter()          # this call's share of `routed`
     results = [None] * len(pattern_texts)
     full = {}
     band_w = {}                 # band problems still to certify: idx → W
@@ -571,45 +577,48 @@ def e2e_align_batch(pattern_texts: Sequence[Tuple[bytes, bytes]],
     def to_host(idx):
         p, t = pattern_texts[idx]
         host_idxs.append(idx)
-        routed["host_problems"] += 1
-        routed["host_cells"] += (len(p) + 1) * (len(t) + 1)
+        counts["host_problems"] += 1
+        counts["host_cells"] += (len(p) + 1) * (len(t) + 1)
 
     for idx, (p, t) in enumerate(pattern_texts):
         cells = (len(p) + 1) * (len(t) + 1)
         if len(p) == 0:
             cig = [(len(t), "I")] if t else []
             results[idx] = ((gapo + gape * len(t)) if t else 0, cig)
-            routed["empty_problems"] += 1
+            counts["empty_problems"] += 1
         elif len(t) == 0:
             results[idx] = (gapo + gape * len(p), [(len(p), "D")])
-            routed["empty_problems"] += 1
+            counts["empty_problems"] += 1
         else:
             key = (bucket(len(p)), bucket(len(t)))
             if (key[0] + 1) * (key[1] + 1) <= FULL_MATRIX_CELLS:
                 full.setdefault(key, []).append(idx)
-                routed["kernel_problems"] += 1
-                routed["kernel_cells"] += cells
+                counts["kernel_problems"] += 1
+                counts["kernel_cells"] += cells
             elif gape > 0 and _band_fits(len(p), len(t), BAND_W0):
                 # the certificate needs gape >= 1
                 band_w[idx] = BAND_W0
-                routed["band_problems"] += 1
-                routed["band_full_cells"] += cells
+                counts["band_problems"] += 1
+                counts["band_full_cells"] += cells
             else:
                 to_host(idx)
 
-    def on_device(idxs):
-        return [torch.from_numpy(x).to(device)
-                for x in encode_problems([pattern_texts[i] for i in idxs])]
-
     def finish(idx, score, runs):
         results[idx] = (score, decode_runs(runs))
+
+    def on_device(idxs, kind, band_ws=None):
+        arrays = encode_problems([pattern_texts[i] for i in idxs])
+        telemetry.add(kind, calls=1,
+                      cells=telemetry.e2e_cells(*arrays[2:], band_ws),
+                      bytes_in=telemetry.e2e_bytes_in(*arrays[2:]))
+        return [torch.from_numpy(x).to(device) for x in arrays]
 
     # every chunk is launched before the first result is read back, and
     # the host-routed problems are aligned while the card works
     launched = []
     for _key, chunk in _chunks(full, lambda k: _full_bits_size(*k, 16)):
-        score, _bits, runs, n_runs = e2e_scan(*on_device(chunk), mism, gapo,
-                                              gape, False)
+        score, _bits, runs, n_runs = e2e_scan(*on_device(chunk, "e2e_full"),
+                                              mism, gapo, gape, False)
         launched.append((chunk, score, runs, n_runs))
 
     while band_w:
@@ -618,25 +627,28 @@ def e2e_align_batch(pattern_texts: Sequence[Tuple[bytes, bytes]],
             p, t = pattern_texts[idx]
             wb = band_geometry(len(p), len(t), w)[2]
             groups.setdefault((bucket(len(p)), bucket(wb)), []).append(idx)
-            routed["band_cells"] += (len(p) + 1) * wb
+            counts["band_cells"] += (len(p) + 1) * wb
         passes = []
         # a band problem's text is at most its pattern and its band long
         for (_bp, width), chunk in _chunks(
                 groups, lambda k: _band_bits_size(k[0], k[0] + k[1],
                                                   k[1] // 2 + 4)):
-            ws = torch.tensor([band_w[i] for i in chunk], dtype=torch.int32)
+            ws = np.array([band_w[i] for i in chunk], dtype=np.int32)
             passes.append((chunk, e2e_banded(
-                *on_device(chunk), ws.to(device), width, mism, gapo, gape,
+                *on_device(chunk, "e2e_band", ws),
+                torch.from_numpy(ws).to(device), width, mism, gapo, gape,
                 False)))
         if host_idxs:
             _align_on_host(pattern_texts, host_idxs, results, mism, gapo,
-                           gape)
+                           gape, counts)
             host_idxs = []
         again = {}
         for chunk, (score, _bits, runs, n_runs, certified) in passes:
             score = score.cpu().tolist()
             certified = certified.cpu().tolist()
             n_runs = n_runs.cpu().tolist()
+            telemetry.add("e2e_band",
+                          bytes_out=telemetry.e2e_bytes_out(n_runs))
             runs = runs[:, :max(n_runs)].cpu().numpy()
             for b, idx in enumerate(chunk):
                 if certified[b]:
@@ -650,18 +662,22 @@ def e2e_align_batch(pattern_texts: Sequence[Tuple[bytes, bytes]],
                 w = max(2 * band_w[idx], need // 2 + 1)
                 if _band_fits(len(p), len(t), w):
                     again[idx] = w
-                    routed["band_relaunches"] += 1
+                    counts["band_relaunches"] += 1
                 else:
                     to_host(idx)
         band_w = again
 
     if host_idxs:
-        _align_on_host(pattern_texts, host_idxs, results, mism, gapo, gape)
+        _align_on_host(pattern_texts, host_idxs, results, mism, gapo, gape,
+                       counts)
 
     for chunk, score, runs, n_runs in launched:
         score = score.cpu().tolist()
         n_runs = n_runs.cpu().tolist()
+        telemetry.add("e2e_full", bytes_out=telemetry.e2e_bytes_out(n_runs))
         runs = runs[:, :max(n_runs)].cpu().numpy()
         for b, idx in enumerate(chunk):
             finish(idx, score[b], runs[b, :n_runs[b]].tolist())
+    with _ROUTED_LOCK:
+        routed.update(counts)
     return results

@@ -23,10 +23,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import mesh
+from . import telemetry
 from .bucket import bucket
-
-# times the CUDA kernel was launched (chip_smoke.py resets and reads it)
-launches = 0
 
 # the cluster genotyper computes exact distances only for pairs with
 # len_a * len_b <= MAX_OPS and uses the |length difference| bound above
@@ -73,7 +72,6 @@ def edit_distances_plain(a: torch.Tensor, b: torch.Tensor,
 
 def _edit_distances_cuda(a, b, len_a, len_b):
     from ._build import check, get_lib
-    global launches
     dev = b.device
     for name, t, dtype in (("a", a, torch.uint8), ("b", b, torch.uint8),
                            ("len_a", len_a, torch.int32),
@@ -94,7 +92,7 @@ def _edit_distances_cuda(a, b, len_a, len_b):
         a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1],
         len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(), B,
         torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    telemetry.add("editdist", launches=1)
     check(rc, "edit-distance kernel launch")
     return out
 
@@ -132,7 +130,13 @@ def edit_distances_batch(pairs: Sequence[Tuple[bytes, bytes]],
 
     The shorter sequence of each pair goes on the `a` side (the distance
     is symmetric); pairs are grouped by the padded width of `b`, so one
-    1 x 10000 pair does not pad thousands of short ones to its width."""
+    1 x 10000 pair does not pad thousands of short ones to its width.
+    While a mesh is installed, the pairs are cut into one contiguous shard
+    per mesh device."""
+    return mesh.shard_map(_edit_distances_batch, device, pairs)
+
+
+def _edit_distances_batch(pairs, device):
     out: List[int] = [0] * len(pairs)
     groups = {}
     norm = []
@@ -148,6 +152,10 @@ def edit_distances_batch(pairs: Sequence[Tuple[bytes, bytes]],
     launched = []
     for width, idxs in sorted(groups.items()):
         arrays = encode_pairs([norm[i] for i in idxs], width)
+        telemetry.add("editdist", calls=1,
+                      cells=telemetry.editdist_cells(*arrays[2:]),
+                      bytes_in=telemetry.nbytes(*arrays),
+                      bytes_out=4 * len(idxs))
         launched.append((idxs, edit_distances(
             *(torch.from_numpy(x).to(device) for x in arrays))))
     for idxs, dist in launched:

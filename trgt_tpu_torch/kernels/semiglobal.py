@@ -28,10 +28,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import mesh
+from . import telemetry
 from .bucket import bucket
-
-# times the CUDA kernel was launched (chip_smoke.py resets and reads it)
-launches = 0
 
 _INF = 1 << 40
 _KEY = 1 << 24          # column index packing for the plain scan
@@ -135,7 +134,6 @@ def flank_align_plain(pattern: torch.Tensor, text: torch.Tensor,
 
 def _flank_align_cuda(pattern, text, lens, mism, go_ge, ge):
     from ._build import check, get_lib
-    global launches
     for name, t, dtype in (("pattern", pattern, torch.uint8),
                            ("text", text, torch.uint8),
                            ("lens", lens, torch.int32)):
@@ -153,7 +151,7 @@ def _flank_align_cuda(pattern, text, lens, mism, go_ge, ge):
         text.shape[1], lens.data_ptr(), out.data_ptr(), B, int(mism),
         int(go_ge), int(ge),
         torch.cuda.current_stream(text.device).cuda_stream)
-    launches += 1
+    telemetry.add("flank", launches=1)
     check(rc, "flank kernel launch")
     return out
 
@@ -205,11 +203,18 @@ def decode_results(raw: np.ndarray) -> List[tuple]:
 def flank_align_batch_multi(patterns: Sequence[bytes],
                             seqs: Sequence[bytes], mism: int, gapo: int,
                             gape: int, device: torch.device):
-    """Batched ends-free alignment with a per-item pattern on `device`.
-    Returns [(score, n_matches, (text_start, text_end))] in input order,
-    equal to `trgt_tpu.kernels.semiglobal.flank_align_batch_multi`."""
+    """Batched ends-free alignment with a per-item pattern on `device`
+    (on the mesh's devices while one is installed). Returns [(score,
+    n_matches, (text_start, text_end))] in input order, equal to
+    `trgt_tpu.kernels.semiglobal.flank_align_batch_multi`."""
     if len(patterns) != len(seqs):
         raise ValueError("patterns and seqs differ in length")
+    return mesh.shard_map(
+        lambda p, s, dev: _flank_align_batch(p, s, mism, gapo, gape, dev),
+        device, patterns, seqs)
+
+
+def _flank_align_batch(patterns, seqs, mism, gapo, gape, device):
     out: List[tuple] = [None] * len(seqs)
     # group by padded width so short texts do not pad to the longest
     groups = {}
@@ -224,6 +229,10 @@ def flank_align_batch_multi(patterns: Sequence[bytes],
             pat, txt, lens = encode_problems([patterns[i] for i in chunk],
                                              [seqs[i] for i in chunk],
                                              width)
+            telemetry.add("flank", calls=1,
+                          cells=telemetry.flank_cells(pat, lens),
+                          bytes_in=telemetry.nbytes(pat, txt, lens),
+                          bytes_out=16 * len(chunk))
             launched.append((chunk, flank_align(
                 torch.from_numpy(pat).to(device),
                 torch.from_numpy(txt).to(device),

@@ -32,15 +32,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import mesh
 from ..hmm.model import Hmm
+from . import telemetry
 from .bucket import bucket
 
 from .viterbi_tables import (NEG, NO_RANK, encode_queries,
                              stack_sparse_tables, stack_tables,
                              tables_to_torch)
-
-# times the CUDA kernel was launched (chip_smoke.py resets and reads it)
-launches = 0
 
 # bound on the (L, B, S) uint16 predecessor buffer of one launch
 MAX_PRED_BYTES = 1 << 28
@@ -152,7 +151,6 @@ def viterbi_plain(tokens: torch.Tensor, tables: Dict[str, torch.Tensor],
 
 def _viterbi_cuda(tokens, tables, lens, ends, num_levels):
     from ._build import check, get_lib
-    global launches
     dev = tokens.device
     B, L = tokens.shape
     if "e_off" not in tables:
@@ -206,7 +204,7 @@ def _viterbi_cuda(tokens, tables, lens, ends, num_levels):
         ptr("sl_link"), ptr("sl_edge"), ptr("ph_off"), ptr("ph_depth"), NS,
         P, S, K, chunk, warps, per_warp, pv.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
+    telemetry.add("viterbi", launches=1)
     check(rc, "viterbi kernel launch")
     return out
 
@@ -248,9 +246,14 @@ def viterbi_batch_multi(hmms: Sequence[Hmm], queries: Sequence[str],
     Requests are grouped by (query-length bucket, state-count bucket) as in
     the JAX version, so one 10 kb allele does not pad short queries to its
     length, and each group is cut so its predecessor buffer stays under
-    MAX_PRED_BYTES."""
+    MAX_PRED_BYTES. While a mesh is installed, the requests are cut into
+    one contiguous shard per mesh device."""
     if len(hmms) != len(queries):
         raise ValueError("hmms and queries differ in length")
+    return mesh.shard_map(_viterbi_batch, device, hmms, queries)
+
+
+def _viterbi_batch(hmms, queries, device):
     groups: Dict[tuple, List[int]] = {}
     for i, (h, q) in enumerate(zip(hmms, queries)):
         if q:
@@ -274,9 +277,15 @@ def viterbi_batch_multi(hmms: Sequence[Hmm], queries: Sequence[str],
     launched = []
     for bi, chunk in enumerate(batches):
         qs = [queries[i] for i in chunk]
+        hs = [hmms[i] for i in chunk]
         with (torch.cuda.stream(streams[bi % len(streams)]) if streams
               else contextlib.nullcontext()):
-            args = prepare_batch([hmms[i] for i in chunk], qs, device)
+            args = prepare_batch(hs, qs, device)
+            B, L = args[0].shape
+            telemetry.add("viterbi", calls=1,
+                          cells=telemetry.viterbi_cells(hs, qs),
+                          bytes_in=telemetry.nbytes(*args[:4]),
+                          bytes_out=2 * (L + 1) * B * (args[4] + 1))
             launched.append((chunk, [len(q) + 2 for q in qs],
                              viterbi_segs(*args)))
     if streams:

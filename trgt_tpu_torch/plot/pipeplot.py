@@ -233,15 +233,20 @@ def generate_image(plot: PipePlot, path: str) -> None:
         with open(path, "w") as fh:
             fh.write(svg)
     elif lower.endswith(".png"):
-        _render_png(plot, path)
+        _render_png(svg, plot, path)
     elif lower.endswith(".pdf"):
         _render_pdf(svg, plot, path)
     else:
         raise ValueError(f"Unsupported image format: {path}")
 
 
-def _render_png(plot: PipePlot, path: str) -> None:
-    # Pillow only (imported in raster._render): no cairosvg route
+def _render_png(svg: str, plot: PipePlot, path: str) -> None:
+    try:
+        import cairosvg
+        cairosvg.svg2png(bytestring=svg.encode(), write_to=path)
+        return
+    except ImportError:
+        pass
     from .raster import rasterize_plot_to_png
     rasterize_plot_to_png(plot, path)
 
