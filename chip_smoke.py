@@ -78,6 +78,35 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   and a 3-way --shard-index/--shard-count split of the
                   bench catalog under cuda whose records together equal
                   phase 7's host run
+ 15. adversarial  the catalog of tests/test_adversarial_e2e.py (14 loci:
+                  homopolymers, stutter, indels at the TR boundaries)
+                  under the size and cluster genotypers: cuda == host ==
+                  the md5s trgt_tpu --device host gives (pinned below);
+                  each cuda run's kernel calls replayed against the plain
+                  versions, as in phases 7-8
+ 16. noisy        20 bench-generator loci, TRs up to 1 kb, read errors
+                  5-25 %, under --preset wgs and targeted, and a second
+                  such catalog of another seed (targeted) on which
+                  trgt_tpu's two Viterbi paths differ (ROADMAP C4):
+                  cuda == the md5s of trgt_tpu --device cpu, its device
+                  path (float32 Viterbi), the port's --device host ==
+                  those of trgt_tpu --device host (float64), and cuda
+                  differs from host in as many records as trgt_tpu's two
+                  paths do (pinned: 0, and 1 on the second catalog); the
+                  kernel calls replayed as in 15
+ 17. scale        the 10^4-locus catalog of benchmarks/scale10k.py, made by
+                  a child process started after phase 14 (it runs beside
+                  phases 15-16), genotyped by `python -m trgt_tpu_torch
+                  genotype -t 4 --device cuda` as a child process (the
+                  worker pool): VCF and BAM md5s == trgt_tpu --device host
+                  -t 6's, 10,000 records, the truth AL of every error-free
+                  locus; wall, loci/s, peak RSS, nvidia-smi memory.used and
+                  utilization, the workers' stage seconds and launches;
+                  then the longest and the deepest loci alone in this
+                  process: records == the -t 4 run's, their kernel calls
+                  (flank texts over a tile, the widest bands) replayed
+Phases 15-17 first check the md5s of the generated repeats.bed and
+ref.fasta, so that a generator difference on this machine shows as such.
 The launch counts and the bounds come from the kernels' own counters
 (trgt_tpu_torch/kernels/telemetry.py), set to 0 just before a run and
 read just after; a worker process's are logged by the worker.
@@ -95,12 +124,19 @@ second-to-last line is
 {"kernels": [...]}: one entry per kernel with the targeted path's numbers
 and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
 the launches of phase 9, under "pool_path" the launches of the targeted
--t 4 workers of phase 12 together, and under "mesh_path" the launches of
-phase 13 by shard. The last line is
+-t 4 workers of phase 12 together, under "mesh_path" the launches of
+phase 13 by shard, and under "adversarial_path", "noisy_path" and
+"scale_path" the launches of phases 15-17 (the cuda runs of both
+genotypers or presets together; the 10^4 run's workers together) beside
+the replays' max_abs_err, held calls and times (those of phase 17: of
+its loci run alone, whose launches are "replayed_loci_launches"). The
+last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
+import collections
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -110,6 +146,7 @@ import re
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -724,11 +761,11 @@ def launch_counts(snap):
     return out
 
 
-def drive_path(dsdir, reads, preset, expect):
-    """Genotype with --device cuda (kernel inputs captured, the counters
-    set to 0 just before and read just after) and --device host; the two
-    must write identical records and every kernel in `expect` must have
-    been launched. Returns (launches, the run's counters, captures)."""
+def capture_cuda(dsdir, reads, preset, **kw):
+    """`run_genotype` with --device cuda, the inputs of every kernel call
+    captured and the counters set to 0 just before and read just after
+    (`kw`: run_genotype's name, n_loci, repeats, extra). Returns (prefix,
+    launches with e2e_band, the run's counters, captures)."""
     from trgt_tpu_torch.kernels import telemetry
     table = kernel_table()
     caps = {name: Capture(k["module"], k["fn"]) for name, k in table.items()}
@@ -742,32 +779,43 @@ def drive_path(dsdir, reads, preset, expect):
         for cap in caps.values():
             stack.enter_context(cap)
         telemetry.clear()
-        cuda_prefix = run_genotype(dsdir, reads, DEVICE, preset)
+        prefix = run_genotype(dsdir, reads, DEVICE, preset, **kw)
         counts = telemetry.snapshot()
     launches = launch_counts(counts)
-    band_launches = launches.pop("e2e_band")
-    print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}"
-          f" (e2e: {band_launches} of them the band class's)")
-    print(f"telemetry of the {preset} cuda run: {json.dumps(counts)}")
-    if band_launches != len(caps["e2e_band"].calls) or \
-            launches["e2e"] - band_launches != len(caps["e2e"].calls):
+    if launches["e2e_band"] != len(caps["e2e_band"].calls) or \
+            launches["e2e"] - launches["e2e_band"] != len(caps["e2e"].calls):
         raise AssertionError("the captured e2e calls do not pair with the "
                              "launch counts")
     for cls, c in counts.items():
         if c.get("calls", 0) != c.get("launches", 0):
             raise AssertionError(f"{cls}: {c.get('calls', 0)} batches "
                                  f"counted, {c.get('launches', 0)} launches")
+    return prefix, launches, counts, caps
+
+
+def drive_path(dsdir, reads, preset, expect):
+    """Genotype with --device cuda (`capture_cuda`) and --device host; the
+    two must write identical records and every kernel in `expect` must
+    have been launched. Returns (launches, the run's counters, captures)."""
+    cuda_prefix, launches, counts, caps = capture_cuda(dsdir, reads, preset)
+    band_launches = launches.pop("e2e_band")
+    print(f"kernel launches in the {preset} cuda run: {json.dumps(launches)}"
+          f" (e2e: {band_launches} of them the band class's)")
+    print(f"telemetry of the {preset} cuda run: {json.dumps(counts)}")
     host_prefix = run_genotype(dsdir, reads, "host", preset)
     cuda_vcf, cuda_bam = records(cuda_prefix)
     host_vcf, host_bam = records(host_prefix)
     n_rec = sum(1 for line in cuda_vcf.splitlines()
                 if not line.startswith("#"))
+    pinned = records_md5(cuda_prefix) == RUN_MD5[("bench96", preset, "host")]
     print(f"{preset} records: {n_rec} VCF, {len(cuda_bam)} spanning-BAM "
           f"bytes; VCF equal {cuda_vcf == host_vcf}, BAM equal "
-          f"{cuda_bam == host_bam}")
-    if n_rec != N_LOCI or cuda_vcf != host_vcf or cuda_bam != host_bam:
-        raise AssertionError(f"cuda and host genotype outputs differ "
-                             f"({preset})")
+          f"{cuda_bam == host_bam}; == trgt_tpu --device host's md5s "
+          f"{pinned}")
+    if n_rec != N_LOCI or cuda_vcf != host_vcf or cuda_bam != host_bam \
+            or not pinned:
+        raise AssertionError(f"cuda and host genotype outputs differ, or "
+                             f"differ from trgt_tpu's ({preset})")
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"the {name} kernel was never launched on "
@@ -927,6 +975,36 @@ def replay_e2e(k, full_calls, band_calls):
         "prev_band_problems": sum(a[0].shape[0] for a in prev_band)}
 
 
+# the columns of one tile of the flank kernel's block class: a wider text
+# is walked tile by tile, its rows' boundaries carried in shared memory
+FLANK_TILE = 4096
+
+
+# {path: call_shapes} of every replay so far
+PATH_SHAPES = {}
+
+
+def call_shapes(caps):
+    """The largest shapes among a path's kernel calls: the widest flank
+    text and the calls wider than a tile, the longest Viterbi query, and
+    the widest band and largest band problem (bytes of direction bits)
+    beside the band class's caps."""
+    from trgt_tpu_torch.kernels import e2e
+    flank = [a[1].shape[1] for a in caps["flank"].calls]
+    lanes = bits = 0
+    for a in caps["e2e_band"].calls:
+        len_p = a[2].long()
+        wb = e2e.band_geometry(len_p, a[3].long(), a[4].long())[2]
+        lanes = max(lanes, int(wb.max()))
+        bits = max(bits, int(((len_p + 1) * wb).max()))
+    return {"flank_widest_text": max(flank, default=0),
+            "flank_calls_over_a_tile": sum(w > FLANK_TILE for w in flank),
+            "viterbi_longest_query": max(
+                (a[0].shape[1] for a in caps["viterbi"].calls), default=0),
+            "band_widest": lanes, "band_max_width": e2e.MAX_BAND_WIDTH,
+            "band_largest_bits": bits, "band_max_bytes": e2e.MAX_BAND_BYTES}
+
+
 def replay(path, table, caps, counts):
     """Every kernel launched on `path` against its plain version on the
     inputs the cuda run gave it; {kernel name: numbers of this replay}.
@@ -936,6 +1014,8 @@ def replay(path, table, caps, counts):
     bound is the run's own counters' (`counts`, kernels/telemetry.py)."""
     from trgt_tpu_torch.kernels import telemetry
     phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
+    PATH_SHAPES[path] = call_shapes(caps)
+    print(f"{path} shapes: {json.dumps(PATH_SHAPES[path])}")
     totals = telemetry.totals(counts)
     out = {}
     for name, k in table.items():
@@ -1029,6 +1109,7 @@ def phase_paths():
                                   root=DATA_ROOT)
     print(f"dataset {os.path.relpath(dsdir, REPO)} ready in "
           f"{time.perf_counter() - t0:.1f} s")
+    check_files(f"bench{N_LOCI}", dsdir)
     print(f"card: {gpu_name_power()}")
     table = kernel_table()
     wgs_launches, counts, caps = drive_path(dsdir, "reads.bam", "wgs",
@@ -1441,12 +1522,13 @@ def bam_records(data: bytes):
 
 
 def genotype_child(dsdir: str, reads: str, preset: str, name: str,
-                   threads: int, extra=()):
+                   threads: int, extra=(), sampler=None):
     """`python -m trgt_tpu_torch -vv genotype ... -t N --device cuda` in a
-    child process, as a user runs it. Returns (prefix, wall seconds, the
-    workers' debug lines: {worker: {"ready": s, "done": s, "loci": n,
-    "stages": {...}, "kernels": telemetry snapshot}}, and with N > 1 the
-    parent's `pool_timeline`)."""
+    child process, as a user runs it (`sampler`: a RunSampler told the
+    child's pid). Returns (prefix, wall seconds, the workers' debug lines:
+    {worker: {"ready": s, "done": s, "loci": n, "stages": {...},
+    "kernels": telemetry snapshot}}, and with N > 1 the parent's
+    `pool_timeline`)."""
     prefix = os.path.join(dsdir, name)
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -1457,14 +1539,21 @@ def genotype_child(dsdir: str, reads: str, preset: str, name: str,
            "--output-prefix", prefix, "--device", DEVICE, "-t",
            str(threads), *extra]
     epoch, t0 = time.time(), time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=600)
+    with subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True) as proc:
+        if sampler is not None:
+            sampler.watch(proc.pid)
+        try:
+            stderr = proc.communicate(timeout=600)[1]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"genotype -t {threads} exited "
-                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    return (prefix, wall, worker_lines(proc.stderr, threads),
-            pool_timeline(proc.stderr, epoch, wall) if threads > 1 else None)
+                           f"{proc.returncode}:\n{stderr[-4000:]}")
+    return (prefix, wall, worker_lines(stderr, threads),
+            pool_timeline(stderr, epoch, wall) if threads > 1 else None)
 
 
 def worker_lines(stderr: str, threads: int):
@@ -1667,6 +1756,536 @@ def phase_ploidy_shards(dsdir: str):
                              "unsharded run")
 
 
+# The stress catalogs of phases 15-17, each made from a seed by a synth
+# module that is passed in: the port's here, `trgt_tpu.utils.synth` in
+# tests/test_torch_stress.py, which makes the pins below with trgt_tpu.
+ADVERSARIAL_LOCI = 14
+ADVERSARIAL_SEED = 7
+# bench-generator loci at read error rates of 5-25 %, TRs capped at 1 kb
+NOISY_LOCI = 20
+NOISY_SEED = 5
+NOISY_ERROR_RATES = (0.05, 0.10, 0.15, 0.20, 0.25)
+NOISY_MAX_TR = 1000
+# a noisy catalog of another seed, on which trgt_tpu's float32 and float64
+# Viterbi paths write different records (ROADMAP C4), and the presets run
+# on each noisy catalog
+NOISY_C4_SEED = 19
+NOISY_PRESETS = {"noisy": ("wgs", "targeted"), "noisy_c4": ("targeted",)}
+# the JAX package's own scale point (benchmarks/scale10k.py)
+SCALE_LOCI = 10_000
+SCALE_THREADS = 4
+# the scale loci whose kernel calls are replayed (`scale_replay_ids`)
+SCALE_REPLAY_LONGEST = 6
+SCALE_REPLAY_DEEPEST = 2
+
+
+def make_bench(synth, d: str) -> None:
+    """The files of bench96 as `cached_hetero_dataset(N_LOCI, seed=SEED)`
+    makes them (without its truth.json)."""
+    synth.make_dataset(d, synth.hetero_loci(N_LOCI, seed=SEED), seed=SEED)
+
+
+def make_adversarial(synth, d: str) -> None:
+    """The adversarial catalog of tests/test_adversarial_e2e.py: homopolymer
+    and low-complexity motifs, motif-copy stutter and indels near the TR
+    boundaries."""
+    synth.make_dataset(d, synth.adversarial_loci(ADVERSARIAL_LOCI,
+                                                 seed=ADVERSARIAL_SEED),
+                       seed=ADVERSARIAL_SEED,
+                       read_mutator=synth.adversarial_mutator)
+
+
+def make_noisy(synth, d: str, n: int = NOISY_LOCI,
+               seed: int = NOISY_SEED) -> None:
+    """`hetero_loci(n, seed=seed)` with every allele and the reference
+    scaled down to at most NOISY_MAX_TR bases and locus i's reads at error
+    rate NOISY_ERROR_RATES[i % 5]."""
+    loci = synth.hetero_loci(n, seed=seed)
+    for i, lc in enumerate(loci):
+        over = max(lc.ref_copies, *lc.allele_copies) * len(lc.motif) \
+            / NOISY_MAX_TR
+        if over > 1:
+            lc.ref_copies = max(2, int(lc.ref_copies / over))
+            lc.allele_copies = tuple(max(2, int(a / over))
+                                     for a in lc.allele_copies)
+        lc.error_rate = NOISY_ERROR_RATES[i % len(NOISY_ERROR_RATES)]
+    synth.make_dataset(d, loci, seed=seed)
+
+
+def make_noisy_c4(synth, d: str) -> None:
+    make_noisy(synth, d, seed=NOISY_C4_SEED)
+
+
+# md5s of what trgt_tpu (the JAX package) makes on the CPU, held by
+# tests/test_torch_stress.py: the generated catalog and genome, and each
+# run's VCF body (the lines that do not start with ##, each with its
+# newline: `zcat | grep -v '^##' | md5sum`) and spanning-BAM records (the
+# bytes after the BAM header). "cpu" is trgt_tpu --device cpu, its device
+# path (float32 Viterbi), "host" its host twins (float64 Viterbi).
+FILE_MD5 = {
+    "bench96": {"repeats.bed": "8af0584d87b49cc9b9c0d018a9704651",
+                "ref.fasta": "0687eb8becb4f478cb419d4a03074546"},
+    "adversarial": {"repeats.bed": "04cabb9a6765848b860b6c00b4ef4b70",
+                    "ref.fasta": "0f1a1149aaf1faecf661fa01718bef09"},
+    "noisy": {"repeats.bed": "803915702feed29a2dd8814cbca0a7f8",
+              "ref.fasta": "5d7a9e1559a5e6b9a30f1cf232a61e30"},
+    "noisy_c4": {"repeats.bed": "acd3d04636bd37a6ce1c8ee5726528b5",
+                 "ref.fasta": "ac0af6bfcdaf47c4ca27b6a7e21025e7"},
+    "scale": {"repeats.bed": "a0316fb965d6bb9a5fe0eeef01ab4f93",
+              "ref.fasta": "7e46736d7dc22f2798b82596f45791da"},
+}
+RUN_MD5 = {
+    # phases 7 and 8 (cuda == the port's --device host == these)
+    ("bench96", "wgs", "host"): ("080da669659586ada3261a14252b722e",
+                                 "ea10e36bc5f001e8d79493dfe9c4dd4a"),
+    ("bench96", "targeted", "host"): ("ccfa3163fa1201cb45140d2421ed6af2",
+                                      "09456d1aa8b38b31675b0be1756c0dc6"),
+    ("adversarial", "size", "host"): ("e5071863807b6d52ba9f3acad9a7e49a",
+                                       "59b668a4e62582dd4e5bace738546957"),
+    ("adversarial", "cluster", "host"): ("3b8260a197799a6e0ac625049a4ab695",
+                                          "efbebe546c47fb7093602c9687c95b19"),
+    ("noisy", "wgs", "cpu"): ("5e112733b2bb5e25a45a72f91bf04ecd",
+                               "62bfd96bc205a71b776fb5fd1710c5e7"),
+    ("noisy", "wgs", "host"): ("5e112733b2bb5e25a45a72f91bf04ecd",
+                                "62bfd96bc205a71b776fb5fd1710c5e7"),
+    ("noisy", "targeted", "cpu"): ("070d00bd7db5e193f216f4b88a1e9165",
+                                    "090af41d00e9fcf628486c5c13fecccb"),
+    ("noisy", "targeted", "host"): ("070d00bd7db5e193f216f4b88a1e9165",
+                                     "090af41d00e9fcf628486c5c13fecccb"),
+    # HET13's sample column differs: the two paths split (NOISY_SPLIT)
+    ("noisy_c4", "targeted", "cpu"): ("a237047d1a465c82e3037854f9371037",
+                                       "7eb15398561b4d4b0a3dbcc2c2235b81"),
+    ("noisy_c4", "targeted", "host"): ("28f2e3d78310b7f84580d31ea28bad24",
+                                        "7eb15398561b4d4b0a3dbcc2c2235b81"),
+    # trgt_tpu --device host -t 6; CONCORDANCE.md's VCF md5 of this catalog
+    ("scale", "wgs", "host"): ("f39a812b71134d8a0fc82b1bbc637490",
+                               "6dd972ee50993e34db51f174e71b41c2"),
+}
+# VCF records in which trgt_tpu --device cpu and --device host differ on
+# the noisy catalogs (ROADMAP C4: float32 against float64 Viterbi)
+NOISY_SPLIT = {("noisy", "wgs"): 0, ("noisy", "targeted"): 0,
+               ("noisy_c4", "targeted"): 1}
+
+
+def file_md5(path: str) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.md5(fh.read()).hexdigest()
+
+
+def records_md5(prefix: str):
+    """(VCF body md5, spanning-BAM records md5) of a run, as pinned."""
+    vcf, bam = records(prefix)
+    return (hashlib.md5((vcf + "\n").encode()).hexdigest(),
+            hashlib.md5(bam).hexdigest())
+
+
+def check_files(name: str, dsdir: str) -> None:
+    got = {f: file_md5(os.path.join(dsdir, f)) for f in FILE_MD5[name]}
+    print(f"{name} catalog: generated file md5s {json.dumps(got)} == "
+          f"trgt_tpu's {got == FILE_MD5[name]}")
+    if got != FILE_MD5[name]:
+        raise AssertionError(f"the {name} generator made other files than "
+                             f"trgt_tpu's (a generator difference, not a "
+                             f"genotyping one)")
+
+
+def stress_dataset(name: str, make) -> str:
+    from trgt_tpu_torch.utils import synth
+    d = os.path.join(DATA_ROOT, f"stress_{name}")
+    os.makedirs(d, exist_ok=True)
+    make(synth, d)
+    check_files(name, d)
+    return d
+
+
+def n_differing(a: str, b: str) -> int:
+    """VCF records (lines) that differ between two bodies."""
+    x, y = a.splitlines(), b.splitlines()
+    return sum(u != v for u, v in zip(x, y)) + abs(len(x) - len(y))
+
+
+# the kernels each preset or genotyper must launch
+PATH_KERNELS = {"wgs": ("flank", "viterbi", "e2e"),
+                "targeted": ("flank", "viterbi", "editdist", "e2e")}
+
+
+def cuda_and_host(d, reads, preset, name, n_loci, expect, extra=()):
+    """A stress catalog under --device cuda (`capture_cuda`), its kernel
+    calls replayed against the plain versions, and under --device host;
+    raises unless every kernel in `expect` launched. Returns (cuda prefix,
+    host prefix, launches, {kernel: numbers of the replay})."""
+    cuda, launches, counts, caps = capture_cuda(
+        d, reads, preset, name=f"{name}_cuda", n_loci=n_loci, extra=extra)
+    missing = [k for k in expect if not launches[k]]
+    if missing:
+        raise AssertionError(f"{name}: {missing} never launched")
+    held = replay(name, kernel_table(), caps, counts)
+    del caps
+    host = run_genotype(d, reads, "host", preset, name=f"{name}_host",
+                        n_loci=n_loci, extra=extra)
+    return cuda, host, launches, held
+
+
+def path_entry(runs):
+    """{kernel: {"launches", "max_abs_err", "held_calls", "ms",
+    "plain_ms"}} over the (launches, replay numbers) of a phase's cuda
+    runs: launches, held calls and times summed, the largest error."""
+    out = {}
+    for name in ("flank", "viterbi", "editdist", "e2e"):
+        e = {"launches": sum(launches[name] for launches, _ in runs),
+             "max_abs_err": 0, "held_calls": 0, "ms": 0.0, "plain_ms": 0.0}
+        for _, held in runs:
+            if name in held:
+                e["max_abs_err"] = max(e["max_abs_err"],
+                                       held[name]["max_abs_err"])
+                for key in ("held_calls", "ms", "plain_ms"):
+                    e[key] += held[name][key]
+        out[name] = e
+    return out
+
+
+def phase_adversarial():
+    """The adversarial catalog under --device cuda and host, size and
+    cluster genotypers: records equal each other and trgt_tpu's pins, and
+    every kernel call of the cuda runs equals its plain version."""
+    phase(f"adversarial: {ADVERSARIAL_LOCI} loci, size and cluster "
+          f"genotypers, --device cuda vs host vs trgt_tpu's pins")
+    d = stress_dataset("adversarial", make_adversarial)
+    runs = []
+    for genotyper, expect in (("size", PATH_KERNELS["wgs"]),
+                              ("cluster", PATH_KERNELS["targeted"])):
+        want = RUN_MD5[("adversarial", genotyper, "host")]
+        cuda, host, launches, held = cuda_and_host(
+            d, "reads.bam", "wgs", f"adv_{genotyper}", ADVERSARIAL_LOCI,
+            expect, ["--genotyper", genotyper])
+        got = {"cuda": records_md5(cuda), "host": records_md5(host)}
+        print(f"adversarial {genotyper}: (VCF, BAM) md5 {json.dumps(got)}; "
+              f"== trgt_tpu --device host {json.dumps(list(want))}: "
+              f"{got['cuda'] == got['host'] == want}; launches "
+              f"{json.dumps(launches)}")
+        if not got["cuda"] == got["host"] == want:
+            raise AssertionError(f"adversarial {genotyper}: cuda, host and "
+                                 f"the pinned trgt_tpu records differ")
+        runs.append((launches, held))
+    return path_entry(runs)
+
+
+def phase_noisy():
+    """The noisy catalogs under --device cuda: records equal trgt_tpu
+    --device cpu's pins (its device path, float32 Viterbi, as the
+    port's), the port's --device host (float64) equals trgt_tpu --device
+    host's, every kernel call equals its plain version, and cuda differs
+    from host in as many records as trgt_tpu's two paths do: none on the
+    noisy catalog, NOISY_SPLIT on the C4 catalog, where they split."""
+    phase(f"noisy: {NOISY_LOCI} loci at read error rates "
+          f"{'/'.join(f'{r:g}' for r in NOISY_ERROR_RATES)}, --device cuda "
+          f"vs trgt_tpu --device cpu's pins")
+    runs = []
+    for catalog, make in (("noisy", make_noisy),
+                          ("noisy_c4", make_noisy_c4)):
+        d = stress_dataset(catalog, make)
+        for preset in NOISY_PRESETS[catalog]:
+            reads = "reads.bam" if preset == "wgs" else low_quality_reads(d)
+            want = RUN_MD5[(catalog, preset, "cpu")]
+            want_host = RUN_MD5[(catalog, preset, "host")]
+            cuda, host, launches, held = cuda_and_host(
+                d, reads, preset, f"{catalog}_{preset}", NOISY_LOCI,
+                PATH_KERNELS[preset])
+            got, got_host = records_md5(cuda), records_md5(host)
+            split = n_differing(records(cuda)[0], records(host)[0])
+            pinned = NOISY_SPLIT[(catalog, preset)]
+            print(f"{catalog} {preset}: cuda (VCF, BAM) md5 "
+                  f"{json.dumps(got)} == trgt_tpu --device cpu {got == want};"
+                  f" the port's --device host == trgt_tpu --device host "
+                  f"{got_host == want_host}; records in which cuda differs "
+                  f"from the port's --device host: {split} (trgt_tpu --device"
+                  f" cpu vs host: {pinned}); launches {json.dumps(launches)}")
+            if got != want or got_host != want_host:
+                raise AssertionError(f"{catalog} {preset}: cuda records differ"
+                                     f" from trgt_tpu --device cpu's, or host"
+                                     f" records from trgt_tpu --device host's")
+            if split != pinned:
+                raise AssertionError(f"{catalog} {preset}: cuda differs from "
+                                     f"the float64 host path in {split} "
+                                     f"records, trgt_tpu's paths in {pinned}")
+            runs.append((launches, held))
+    return path_entry(runs)
+
+
+# makes the scale catalog in a process of its own (benchmarks/scale10k.py
+# does the same), so the generator's memory stays out of the readings
+_SCALE_GEN = r"""
+import sys, time
+sys.path.insert(0, sys.argv[1])
+from trgt_tpu_torch.utils.synth import cached_hetero_dataset
+t0 = time.perf_counter()
+d = cached_hetero_dataset(int(sys.argv[3]), seed=int(sys.argv[4]),
+                          tag="scale", root=sys.argv[2])
+print(d, time.perf_counter() - t0)
+"""
+
+# a fresh interpreter's RSS (MiB, /proc) after `import torch`, after the
+# CUDA check that the -t N parent makes, and with a CUDA context, as a
+# worker holds one: the floor under the pool's readings
+_RSS_FLOOR = r"""
+import re, torch
+def rss():
+    with open("/proc/self/status") as fh:
+        return int(re.search(r"VmRSS:\s+(\d+) kB", fh.read())[1]) / 1024
+imported = rss()
+torch.cuda.is_available()
+checked = rss()
+torch.zeros(1, device="cuda")
+print(imported, checked, rss())
+"""
+
+
+def start_scale_generator():
+    """Starts making the scale catalog; returns (process, start time)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SCALE_GEN, REPO, DATA_ROOT, str(SCALE_LOCI),
+         str(SEED)], cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def peak_kib(status: str):
+    """The peak RSS (KiB) in a /proc/<pid>/status text: VmHWM, or VmRSS
+    where the kernel gives no VmHWM (then a sample's RSS, of which the
+    sampler keeps the largest)."""
+    m = re.search(r"VmHWM:\s+(\d+) kB", status) or \
+        re.search(r"VmRSS:\s+(\d+) kB", status)
+    return int(m[1]) if m else None
+
+
+class RunSampler:
+    """While active, every `ms` milliseconds: `nvidia-smi` memory.used (MiB)
+    and utilization (%), and the peak RSS (VmHWM, MiB) of each process
+    under the pid given to `watch`, read from /proc."""
+
+    def __init__(self, ms: int = 250):
+        self.ms, self.samples, self.peaks = ms, [], {}
+        self.root, self.done = None, threading.Event()
+
+    def watch(self, pid: int) -> None:
+        self.root = pid
+
+    def _tree(self):
+        children = {}
+        for name in os.listdir("/proc"):
+            if name.isdigit():
+                try:
+                    with open(f"/proc/{name}/stat") as fh:
+                        ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+                except (OSError, IndexError, ValueError):
+                    continue
+                children.setdefault(ppid, []).append(int(name))
+        out, stack = set(), [self.root]
+        while stack:
+            pid = stack.pop()
+            if pid not in out:
+                out.add(pid)
+                stack += children.get(pid, [])
+        return out
+
+    def _loop(self):
+        while not self.done.wait(self.ms / 1000):
+            if self.root is None:
+                continue
+            for pid in self._tree():
+                try:
+                    with open(f"/proc/{pid}/status") as fh:
+                        m = peak_kib(fh.read())
+                    with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                        kind = "worker" if b"engine.worker" in fh.read() \
+                            else "genotype process"
+                except OSError:
+                    continue
+                if m:
+                    key = (kind, pid)
+                    self.peaks[key] = max(self.peaks.get(key, 0), m / 1024)
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used,utilization.gpu",
+             "--format=csv,noheader,nounits", f"-lms={self.ms}"],
+            stdout=subprocess.PIPE, text=True)
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        for line in out.splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) == 2 and all(p.isdigit() for p in parts):
+                self.samples.append((int(parts[0]), int(parts[1])))
+
+    def peak_rss(self):
+        """{"genotype process": MiB, "largest worker": MiB} from /proc."""
+        out = {}
+        for (kind, _pid), mib in self.peaks.items():
+            key = "largest worker" if kind == "worker" else kind
+            out[key] = max(out.get(key, 0.0), mib)
+        return out
+
+
+def truth_check(vcf: str, truth: dict):
+    """concordance.py's check: for every error-free locus, the called AL
+    (sorted; the first allele alone where haploid) equals the truth.
+    Returns (loci checked, failures)."""
+    n, failures = 0, []
+    for line in vcf.splitlines():
+        if line.startswith("#"):
+            continue
+        fields = line.split("\t")
+        info = dict(kv.split("=", 1) for kv in fields[7].split(";")
+                    if "=" in kv)
+        t = truth.get(info.get("TRID"))
+        if t is None or t["error_rate"] > 0.0:
+            continue
+        n += 1
+        sample = dict(zip(fields[8].split(":"), fields[9].split(":")))
+        want = t["alleles"][:1] if t["haploid"] else t["alleles"]
+        al = sample.get("AL", ".")
+        got = "no call" if al == "." else sorted(int(x)
+                                                for x in al.split(","))
+        if got != want:
+            failures.append((info["TRID"], got, want))
+    return n, failures
+
+
+def phase_scale(generator):
+    """`genotype -t SCALE_THREADS --device cuda` (the worker pool) of the
+    10^4-locus catalog as a child process: records == trgt_tpu --device
+    host's pins, SCALE_LOCI VCF records, truth AL of every error-free
+    locus; its wall, peak RSS, device memory and the workers' stages and
+    launches."""
+    proc, t_gen = generator
+    phase(f"scale: {SCALE_LOCI} loci (cached_hetero_dataset(tag='scale'), "
+          f"seed {SEED}), genotype -t {SCALE_THREADS} --device cuda")
+    out = proc.communicate(timeout=900)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"the scale generator exited {proc.returncode}")
+    dsdir, gen_s = out.split()[-2], float(out.split()[-1])
+    print(f"generator (a process of its own, started before phase 15): "
+          f"{gen_s:.3f} s, ready {time.perf_counter() - t_gen:.3f} s after "
+          f"its start")
+    check_files("scale", dsdir)
+    import torch
+    torch.cuda.empty_cache()
+    with RunSampler() as gpu:
+        time.sleep(1)
+        prefix, wall, workers, timeline = genotype_child(
+            dsdir, "reads.bam", "wgs", "smoke_scale", SCALE_THREADS,
+            sampler=gpu)
+    print(f"scale: {SCALE_LOCI} loci in {wall:.3f} s = "
+          f"{SCALE_LOCI / wall:.3f} loci/s (the child process, start-up "
+          f"included); the parent (s) {json.dumps(timeline)}")
+    floor = [float(x) for x in subprocess.run(
+        [sys.executable, "-c", _RSS_FLOOR], check=True, capture_output=True,
+        text=True).stdout.split()]
+    print(f"scale: peak RSS (MiB, /proc samples every {gpu.ms} ms) "
+          f"{json.dumps(gpu.peak_rss())}; a fresh interpreter's RSS after "
+          f"import torch {floor[0]:.1f}, after the CUDA check "
+          f"{floor[1]:.1f}, with a CUDA context {floor[2]:.1f}")
+    mem = [m for m, _ in gpu.samples]
+    busy = [b for _, b in gpu.samples]
+    print(f"scale: nvidia-smi memory.used max {max(mem)} MiB (before the run "
+          f"{mem[0]} MiB: this script's own), utilization.gpu mean "
+          f"{sum(busy) / len(busy):.2f} % over {len(busy)} samples")
+    launched, stages = collections.Counter(), collections.Counter()
+    for w, v in sorted(workers.items()):
+        counts = launch_counts(v["kernels"])
+        print(f"  worker {w}: {v['loci']} loci, ready {v.get('ready')} s, "
+              f"done {v['done']} s, stages {json.dumps(v['stages'])}, "
+              f"launches {json.dumps(counts)}")
+        launched.update(counts)
+        stages.update(v["stages"])
+    stages = {k: round(v, 3) for k, v in stages.items()}
+    print(f"scale: stage seconds summed over the workers "
+          f"{json.dumps(stages)}; launches {json.dumps(launched)}")
+    got = records_md5(prefix)
+    vcf = records(prefix)[0]
+    n_rec = sum(1 for line in vcf.splitlines() if not line.startswith("#"))
+    with open(os.path.join(dsdir, "truth.json")) as fh:
+        n_truth, failures = truth_check(vcf, json.load(fh))
+    want = RUN_MD5[("scale", "wgs", "host")]
+    print(f"scale: {n_rec} VCF records; (VCF, BAM) md5 {json.dumps(got)} == "
+          f"trgt_tpu --device host -t 6 {got == want}; truth AL of "
+          f"error-free loci {n_truth - len(failures)}/{n_truth}")
+    if got != want or n_rec != SCALE_LOCI or failures or not n_truth:
+        raise AssertionError(f"scale: records differ from trgt_tpu's, or "
+                             f"{n_rec} records, or truth failures "
+                             f"{failures[:5]}")
+    missing = [k for k in ("flank", "viterbi", "e2e") if not launched[k]]
+    if missing:
+        raise AssertionError(f"scale: {missing} never launched")
+    entry = replay_scale_loci(dsdir, prefix)
+    for name, e in entry.items():
+        e["replayed_loci_launches"] = e["launches"]
+        e["launches"] = launched[name]
+    return entry
+
+
+def scale_replay_ids():
+    """The scale loci whose kernel calls are replayed: the longest alleles
+    (flank texts over a tile, bands near their caps, the longest Viterbi
+    queries) and the deepest error-free loci (the most reads a call)."""
+    from trgt_tpu_torch.utils.synth import hetero_loci
+    loci = hetero_loci(SCALE_LOCI, seed=SEED)
+    longest = sorted(loci, key=lambda lc: -max(lc.allele_copies)
+                     * len(lc.motif))[:SCALE_REPLAY_LONGEST]
+    picked = {lc.id for lc in longest}
+    deepest = sorted((lc for lc in loci if not lc.error_rate
+                      and lc.id not in picked),
+                     key=lambda lc: -lc.depth)[:SCALE_REPLAY_DEEPEST]
+    return {lc.id for lc in longest + deepest}
+
+
+def replay_scale_loci(dsdir, prefix):
+    """The loci of `scale_replay_ids` alone, genotyped in this process with
+    --device cuda (`capture_cuda`): their records equal those of the -t 4
+    run, and every kernel call equals its plain version. Returns
+    path_entry's numbers."""
+    ids = scale_replay_ids()
+    with open(os.path.join(dsdir, "repeats.bed")) as fh:
+        lines = [line for line in fh
+                 if re.search(r"ID=([^;]+)", line)[1] in ids]
+    with open(os.path.join(dsdir, "repeats_replay.bed"), "w") as fh:
+        fh.writelines(lines)
+    sub, launches, counts, caps = capture_cuda(
+        dsdir, "reads.bam", "wgs", name="smoke_scale_replay",
+        n_loci=len(lines), repeats="repeats_replay.bed")
+    launches.pop("e2e_band")
+    vcf, bam = records(sub)
+    full_vcf, full_bam = records(prefix)
+    want = [line for line in full_vcf.splitlines()[1:]
+            if re.search(r"TRID=([^;]+)", line)[1] in ids]
+    sub_bam = collections.Counter(bam_records(bam))
+    same_vcf = vcf.splitlines()[1:] == want
+    same_bam = not sub_bam - collections.Counter(bam_records(full_bam))
+    print(f"scale loci {sorted(ids)} alone: {len(lines)} VCF records == the "
+          f"-t {SCALE_THREADS} run's {same_vcf}; their "
+          f"{sum(sub_bam.values())} spanning-BAM records among its "
+          f"{same_bam}; launches {json.dumps(launches)}")
+    if len(lines) != len(ids) or not same_vcf or not same_bam:
+        raise AssertionError("the scale loci alone differ from the -t "
+                             f"{SCALE_THREADS} run")
+    held = replay("scale loci", kernel_table(), caps, counts)
+    shapes, bench = PATH_SHAPES["scale loci"], [
+        PATH_SHAPES[p] for p in ("wgs", "targeted")]
+    beyond = {k: v > max(b[k] for b in bench) for k, v in shapes.items()
+              if not k.startswith("band_max")}
+    print(f"scale loci: shapes beyond bench{N_LOCI}'s paths "
+          f"{json.dumps(beyond)}")
+    return path_entry([(launches, held)])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1675,6 +2294,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
+    generator = []
+    try:
+        return run_phases(t_start, generator)
+    finally:
+        for proc, _ in generator:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(t_start, generator) -> int:
+    import torch
     phase_env()
     for fn in (phase_build, phase_flank, phase_viterbi, phase_editdist,
                phase_e2e_fuzz):
@@ -1709,6 +2340,20 @@ def main() -> int:
         entry["mesh_path"] = {"launches_by_shard":
                               mesh_launches[entry["name"]]}
     print(f"worker pool, mesh, karyotype and shard phases: "
+          f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    # the 10^4 catalog is made beside phases 15-16 (their host times share
+    # the CPU with it), none of the phases before
+    generator.append(start_scale_generator())
+    for key, fn, args in (("adversarial_path", phase_adversarial, ()),
+                          ("noisy_path", phase_noisy, ()),
+                          ("scale_path", phase_scale, generator)):
+        t0 = time.perf_counter()
+        numbers = fn(*args)
+        print(f"   ({time.perf_counter() - t0:.1f} s)")
+        for entry in kernels:
+            entry[key] = numbers[entry["name"]]
+    print(f"adversarial, noisy and scale phases: "
           f"{time.perf_counter() - t_new:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_name_power())

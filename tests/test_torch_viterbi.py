@@ -65,6 +65,29 @@ def test_plain_matches_jax_and_host(motifs):
     assert got == [hmm.label(q) for q in queries]
 
 
+@pytest.mark.parametrize("error_rate", [0.05, 0.15, 0.25])
+@pytest.mark.parametrize("motifs", [[b"CAG"], [b"CAG", b"A"],
+                                    [b"AAGGC", b"TTA"]],
+                         ids=lambda m: ",".join(x.decode() for x in m))
+def test_plain_matches_jax_on_noisy_queries(motifs, error_rate):
+    """ROADMAP C4: on noisy queries the float32 path (the port's plain
+    version and CUDA kernel, and trgt_tpu's `viterbi_batch_multi`) and the
+    float64 host twin `Hmm.label` pick different paths for some queries.
+    The port follows trgt_tpu's device path exactly; the count that
+    differs from `Hmm.label` is printed (ROADMAP records it), not held."""
+    from trgt_tpu.kernels import viterbi as jax_viterbi
+    rng = random.Random(1)
+    hmm = build_hmm(motifs)
+    queries = [random_repeat(rng, motifs, rng.randint(10, 120), error_rate)
+               for _ in range(150)]
+    got = vt.viterbi_batch_multi([hmm] * len(queries), queries, CPU)
+    assert got == jax_viterbi.viterbi_batch_multi([hmm] * len(queries),
+                                                  queries)
+    n_host = sum(g != hmm.label(q) for g, q in zip(got, queries))
+    print(f"C4 {b','.join(motifs).decode()} at {error_rate:.0%} errors: "
+          f"{n_host} of {len(queries)} paths differ from Hmm.label")
+
+
 def test_heterogeneous_hmms_in_one_batch():
     from trgt_tpu.kernels import viterbi as jax_viterbi
     hmms = [build_hmm(m) for m in ([b"CAG"], [b"CAG", b"A"],
