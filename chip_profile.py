@@ -4,6 +4,31 @@
     python3 chip_profile.py scaling
     python3 chip_profile.py streams
     python3 chip_profile.py pool PARENT_TREE [96|384|paths-N|busy[-N][:wgs|:targeted] ...]
+    python3 chip_profile.py scale [n=100000] [threads=4] [parent=TREE]
+
+`scale` holds `genotype -t 4 --device cuda` at the JAX package's largest
+scale point (benchmarks/scale10k.py --n 100000, CONCORDANCE.md) and at
+chip_smoke.py's 10^4 one, in one call: it makes both catalogs of the bench
+generator (`cached_hetero_dataset(n, seed=42, tag="scale")`) in child
+processes side by side and checks their files against chip_smoke.FILE_MD5,
+then runs `python -m trgt_tpu_torch -vv genotype -t 4 --device cuda` as a
+child process on the 10^4 catalog and then on the n-locus one. For each
+run it prints the wall and loci/s, the peak RSS of the genotype process
+and of each worker, nvidia-smi memory.used and the device memory of each
+compute process, the busy share, the workers' summed stage seconds,
+launches, e2e.routed and allocator MiB, and holds the records against
+trgt_tpu --device host -t 6's pins (chip_smoke.RUN_MD5; an n without a
+pin is printed only), n VCF records and the truth AL of every error-free
+locus. Memory flatness: the peaks of the genotype process's RSS, the
+largest worker's RSS, memory.used and the largest compute process's
+device memory in each tenth of the run's wall (`tenths`); flat where the
+last tenth's peak exceeds the second tenth's by at most 5 % or 64 MiB,
+whichever is larger (`flat`). Raises on any failure, a run that is not
+flat included. With `parent=TREE` (another checkout, unpacked with `git
+archive`) the 10^4 catalog also runs under that tree before this tree's
+10^4 run and after its n-locus run (wall and loci/s, records == the pin).
+The 10^5 catalog takes about 15 minutes to make, its run 20-30 on the
+H100: give the call 3600 s.
 
 `pool` times `genotype --device cuda` of bench96 under both presets as a
 user runs it, one child process per run, in rounds (forward, backward,
@@ -462,6 +487,124 @@ def pool(parent_tree: str, parts=("96", "384", "busy")) -> None:
             raise ValueError(f"unknown pool part {part!r}")
 
 
+# flat: the last tenth's peak over the second tenth's by at most this
+# share of it, or this many MiB, whichever is larger
+FLAT_SHARE = 0.05
+FLAT_MIB = 64
+SCALE_N = 100_000
+
+
+def tenths(series, start: float, end: float):
+    """The peak of the (time, value) samples in each tenth of [start,
+    end]; None for a tenth without a sample."""
+    peaks = [None] * 10
+    span = end - start
+    for t, value in series:
+        if not start <= t <= end:
+            continue
+        k = min(9, int((t - start) * 10 / span))
+        peaks[k] = value if peaks[k] is None else max(peaks[k], value)
+    return peaks
+
+
+def flat(peaks) -> bool:
+    """Whether the last tenth's peak exceeds the second tenth's by at most
+    FLAT_SHARE of it or FLAT_MIB, whichever is larger."""
+    second, last = peaks[1], peaks[-1]
+    if second is None or last is None:
+        return False
+    return last - second <= max(FLAT_SHARE * second, FLAT_MIB)
+
+
+def scale_run(dsdir, n, pin, timeout):
+    """One `genotype -t 4` child on an n-locus catalog (chip_smoke's
+    `scale_run`); prints its memory tenths. Returns (loci/s, {series:
+    (peaks, flat)})."""
+    _, gpu, numbers, (start, end), wall = cs.scale_run(
+        f"scale {n}", dsdir, "reads.bam", "wgs", f"profile_scale_{n}", n,
+        pin, timeout=timeout)
+    series = {
+        "genotype process RSS": [(t, p) for t, p, _ in gpu.rss_series],
+        "largest worker RSS": [(t, w) for t, _, w in gpu.rss_series],
+        "memory.used": [(t, m) for t, m, _ in gpu.smi_series]}
+    if gpu.app_peak:
+        series["largest compute process"] = gpu.app_series
+    else:
+        print(f"scale {n}: nvidia-smi reported no compute process")
+    workers = [round(mib, 3) for (kind, _), mib in sorted(gpu.peaks.items())
+               if kind == "worker"]
+    print(f"scale {n}: peak RSS of each worker (MiB) {json.dumps(workers)}")
+    out = {}
+    for name, samples in series.items():
+        peaks = tenths(samples, start, end)
+        out[name] = (peaks, flat(peaks))
+        print(f"scale {n}: {name} (MiB), peak in each tenth of the "
+              f"{end - start:.3f} s run: {json.dumps(peaks)}; flat "
+              f"{out[name][1]}", flush=True)
+    print(f"scale {n}: allocator MiB by worker at its end "
+          f"{json.dumps(numbers['cuda_memory'])}")
+    return n / wall, out
+
+
+def parent_scale_run(tree, dsdir, threads, turn):
+    """The 10^4 catalog under the tree at `tree`, a `genotype -t N` child
+    process: prints its wall and loci/s; raises unless its records are
+    the pin's."""
+    prefix = os.path.join(dsdir, f"profile_scale_parent{turn}")
+    wall, _, _ = cli_run(tree, dsdir, "reads.bam", "wgs", prefix, threads)
+    same = cs.records_md5(prefix) == cs.RUN_MD5[("scale", "wgs", "host")]
+    print(f"parent tree, scale {cs.SCALE_LOCI} (turn {turn}): {wall:.3f} s "
+          f"= {cs.SCALE_LOCI / wall:.3f} loci/s; records == the pin {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the parent tree's records differ from the pin")
+    return cs.SCALE_LOCI / wall
+
+
+def scale(n: int = SCALE_N, threads: int = cs.SCALE_THREADS,
+          parent: str = "") -> None:
+    from trgt_tpu_torch.kernels import _build
+    cs.SCALE_THREADS = threads
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
+    pins = {cs.SCALE_LOCI: "scale", SCALE_N: "scale100k"}
+    sizes = [cs.SCALE_LOCI] + ([n] if n != cs.SCALE_LOCI else [])
+    gens = {m: cs.start_generator(m, "scale") for m in sizes}
+    dirs = {}
+    for m in sizes:
+        dirs[m] = cs.wait_generator(gens[m], f"{m}-locus",
+                                    timeout=900 if m <= cs.SCALE_LOCI
+                                    else 9000)
+        if m in pins:
+            cs.check_files(pins[m], dirs[m])
+        else:
+            print(f"{m}-locus catalog: no pinned files")
+    if parent:
+        subprocess.run([sys.executable, "-c", "from trgt_tpu_torch.kernels "
+                        "import _build; _build.build()"], cwd=parent,
+                       env=dict(os.environ, PYTHONPATH=parent), check=True)
+    parent_rates = [parent_scale_run(parent, dirs[cs.SCALE_LOCI], threads, 1)
+                    ] if parent else []
+    rates, memory = {}, {}
+    for m in sizes:
+        pin = (pins[m], "wgs", "host") if m in pins else None
+        rates[m], memory[m] = scale_run(dirs[m], m, pin,
+                                        timeout=1800 if m <= cs.SCALE_LOCI
+                                        else 3300)
+    if parent:
+        parent_rates.append(parent_scale_run(parent, dirs[cs.SCALE_LOCI],
+                                             threads, 2))
+    print(f"scale: loci/s at -t {threads} in one call "
+          f"{json.dumps({m: round(r, 3) for m, r in rates.items()})}"
+          + (f"; the parent tree at {cs.SCALE_LOCI}, before and after "
+             f"{[round(r, 3) for r in parent_rates]}" if parent else ""))
+    print(cs.gpu_name_power())
+    grown = [name for name, (_, ok) in memory[sizes[-1]].items() if not ok]
+    if grown:
+        raise AssertionError(f"scale {sizes[-1]}: memory not flat: {grown}")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -470,6 +613,13 @@ def main() -> int:
         print("chip_profile: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    if preset == "scale":
+        print(cs.gpu_name_power())
+        opts = dict(arg.split("=", 1) for arg in sys.argv[2:])
+        scale(int(opts.get("n", SCALE_N)),
+              int(opts.get("threads", cs.SCALE_THREADS)),
+              os.path.abspath(opts["parent"]) if "parent" in opts else "")
+        return 0
     if preset in ("scaling", "streams"):
         print(cs.gpu_name_power())
         (scaling if preset == "scaling" else streams)()

@@ -62,12 +62,13 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   peak RSS, record count == distinct sites, BCF == VCF
  12. worker pool  a 256-locus catalog of the same generator (64 loci a
                   worker at -t 4: a smaller catalog runs on threads)
-                  under both presets as child processes `python -m
+                  under --preset wgs as child processes `python -m
                   trgt_tpu_torch -vv genotype -t 1/2/4 --device cuda`:
                   -t 2 and -t 4 write the records of -t 1, every
                   worker that wrote a record launched Viterbi (its
                   counters, logged at debug level), and the workers
                   together launched every kernel of the path; the walls
+                  (the targeted preset's pool is phase 18's)
  13. mesh         `engine.sharding.dryrun(2, "cuda")` over [cuda:0,
                   cuda:0], then the wgs path under that mesh: the records
                   of phase 7, flank, Viterbi and e2e launched on both
@@ -95,8 +96,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   paths do (pinned: 0, and 1 on the second catalog); the
                   kernel calls replayed as in 15
  17. scale        the 10^4-locus catalog of benchmarks/scale10k.py, made by
-                  a child process started after phase 14 (it runs beside
-                  phases 15-16), genotyped by `python -m trgt_tpu_torch
+                  a child process started after phase 11 (it runs beside
+                  phases 12-16), genotyped by `python -m trgt_tpu_torch
                   genotype -t 4 --device cuda` as a child process (the
                   worker pool): VCF and BAM md5s == trgt_tpu --device host
                   -t 6's, 10,000 records, the truth AL of every error-free
@@ -105,7 +106,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   then the longest and the deepest loci alone in this
                   process: records == the -t 4 run's, their kernel calls
                   (flank texts over a tile, the widest bands) replayed
-Phases 15-17 first check the md5s of the generated repeats.bed and
+ 18. targeted at  a 2,500-locus catalog of the same generator, every
+     scale        second read at rq 0.85 (made beside phases 12-16, like
+                  17's), under `genotype --preset targeted -t 4 --device
+                  cuda` as a child process: VCF and BAM md5s == trgt_tpu
+                  --device host -t 6 --preset targeted's, 2,500 records,
+                  truth AL of every error-free locus, every worker that
+                  wrote a record launched Viterbi and the workers together
+                  all four kernels; wall, loci/s, launches, edit-distance
+                  pairs and cells, the impure filter's reads, busy share
+                  and memory.used; then the loci with the most cluster
+                  pairs and the longest alleles alone in this process:
+                  records == the -t 4 run's, their kernel calls replayed
+ 19. Viterbi rows the rows of every replayed path's Viterbi calls (phases
+                  7-8, 15-18) held against the plain version in a few
+                  batches (see below)
+Phases 15-18 first check the md5s of the generated repeats.bed and
 ref.fasta, so that a generator difference on this machine shows as such.
 The launch counts and the bounds come from the kernels' own counters
 (trgt_tpu_torch/kernels/telemetry.py), set to 0 just before a run and
@@ -117,20 +133,24 @@ go through it in a few batches, against which each call's kernel output
 is held problem by problem. The plain Viterbi
 takes dense tables built from the HMMs' edge lists, not from the kernel's
 sparse ones. It walks positions in Python, at a cost that hardly depends
-on the number of rows: the rows of all calls up to a padded query length
-of REPLAY_MAX_L it runs as one batch, those of all longer calls as
-another, against which each call's kernel output is held row by row. The
-second-to-last line is
+on the number of rows: so each replay keeps its Viterbi calls' kernel
+outputs, and phase 19 runs the rows of every path's calls up to a padded
+query length of REPLAY_MAX_L as one batch and those of all longer calls as
+another (each cut where its traceback words would pass
+PLAIN_VITERBI_BYTES), against which each call's kernel output is held row
+by row; a path's Viterbi "plain_ms" is the time of the batches that held
+its rows ("plain_batches"), which other paths share. The script prints
+each phase's seconds and the total. The second-to-last line is
 {"kernels": [...]}: one entry per kernel with the targeted path's numbers
 and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
 the launches of phase 9, under "pool_path" the launches of the targeted
--t 4 workers of phase 12 together, under "mesh_path" the launches of
-phase 13 by shard, and under "adversarial_path", "noisy_path" and
-"scale_path" the launches of phases 15-17 (the cuda runs of both
-genotypers or presets together; the 10^4 run's workers together) beside
-the replays' max_abs_err, held calls and times (those of phase 17: of
-its loci run alone, whose launches are "replayed_loci_launches"). The
-last line is
+-t 4 workers of phase 18 together, under "mesh_path" the launches of
+phase 13 by shard, and under "adversarial_path", "noisy_path",
+"scale_path" and "targeted_scale_path" the launches of phases 15-18 (the
+cuda runs of both genotypers or presets together; the 10^4 and 2,500
+runs' workers together) beside the replays' max_abs_err, held calls and
+times (those of phases 17-18: of their loci run alone, whose launches are
+"replayed_loci_launches"). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
@@ -824,12 +844,15 @@ def drive_path(dsdir, reads, preset, expect):
     return launches, counts, caps
 
 
+LOW_RQ_READS = "reads_low_rq.bam"
+
+
 def low_quality_reads(dsdir: str) -> str:
     """reads.bam with every second read's rq rewritten to 0.85 (under 0.9,
     so the targeted preset's impure-read filter labels it)."""
     from trgt_tpu_torch.io.bam import BamReader
     from trgt_tpu_torch.io.bam_write import BamWriter
-    name = "reads_low_rq.bam"
+    name = LOW_RQ_READS
     src = BamReader(os.path.join(dsdir, "reads.bam"))
     w = BamWriter(os.path.join(dsdir, name), src.header.text,
                   src.header.references, build_index=True)
@@ -851,33 +874,32 @@ def kernel_ms(kernel, calls) -> float:
     return total
 
 
-def hold_rows(kernel, plain, calls, batches):
-    """The Viterbi kernel's output on each of `calls` against ONE run of
-    the plain version over all their rows (`batches`: each call's hmms
-    and queries): rows do not act on one another, so a row's segments are
-    those of its own call, padded with -1 to the batch's positions and
-    levels. Holds for rows with a valid path, which is every row of a
-    genotype run that ended. Returns (max_abs_err, plain ms)."""
+def hold_rows(plain, gots, batches):
+    """The Viterbi kernel's outputs `gots` (one per call, on any device)
+    against ONE run of the plain version over all their rows (`batches`:
+    each call's hmms and queries): rows do not act on one another, so a
+    row's segments are those of its own call, padded with -1 to the
+    batch's positions and levels. Holds for rows with a valid path, which
+    is every row of a genotype run that ended. Returns (max_abs_err of
+    each call, plain ms)."""
     args = dense_calls([([h for hmms, _ in batches for h in hmms],
                          [q for _, queries in batches for q in queries])])[0]
     want, plain_ms = timed(lambda: plain(*args))
-    err, lo = 0, 0
-    for call in calls:
-        got = kernel(*call)
+    errs, lo = [], 0
+    for got in gots:
+        got = got.to(want.device)
         L, B, K = got.shape[0] - 1, got.shape[1], got.shape[2]
         rows = want[:, lo:lo + B]
         lo += B
-        if not bool(got[L].all()):
-            raise AssertionError("a replayed Viterbi row has no valid path")
-        err = max(err, max_abs_err(got[:L], rows[:L, :, :K]),
-                  max_abs_err(got[L, :, 0], rows[-1, :, 0]))
+        errs.append(max(max_abs_err(got[:L], rows[:L, :, :K]),
+                        max_abs_err(got[L, :, 0], rows[-1, :, 0])))
         if not (bool((rows[L:-1] == -1).all())
                 and bool((rows[:L, :, K:] == -1).all())):
             raise AssertionError("the plain batch's rows are not empty "
                                  "beyond a call's positions and levels")
     if lo != want.shape[1]:
         raise AssertionError(f"{lo} rows held, {want.shape[1]} in the batch")
-    return err, plain_ms
+    return errs, plain_ms
 
 
 # bytes of direction bits one batch of the plain banded e2e may hold
@@ -1008,10 +1030,11 @@ def call_shapes(caps):
 def replay(path, table, caps, counts):
     """Every kernel launched on `path` against its plain version on the
     inputs the cuda run gave it; {kernel name: numbers of this replay}.
-    Time covers every call, and every call is held: the Viterbi calls
-    through `hold_rows`, in two batches split at REPLAY_MAX_L positions,
-    all else call by call. The
-    bound is the run's own counters' (`counts`, kernels/telemetry.py)."""
+    Time covers every call, and every call is held: the Viterbi calls'
+    rows after the last phase, with every other path's
+    (`hold_viterbi_rows`, which fills in their max_abs_err and plain_ms),
+    all else call by call here. The bound is the run's own counters'
+    (`counts`, kernels/telemetry.py)."""
     from trgt_tpu_torch.kernels import telemetry
     phase(f"replay: the {path} path's kernel inputs, kernel vs plain")
     PATH_SHAPES[path] = call_shapes(caps)
@@ -1030,20 +1053,19 @@ def replay(path, table, caps, counts):
             if [len(q) for _, q in batches] != [a[0].shape[0] for a in calls]:
                 raise AssertionError("the captured Viterbi batches do not "
                                      "pair with the kernel's calls")
-            short = [i for i, a in enumerate(calls)
-                     if a[0].shape[1] <= REPLAY_MAX_L]
-            rest = [i for i in range(len(calls)) if i not in short]
-            err, plain_ms = 0, 0.0
-            for group in (short, rest):
-                if group:
-                    err_rows, ms_rows = hold_rows(
-                        kernel, k["plain"], [calls[i] for i in group],
-                        [batches[i] for i in group])
-                    err, plain_ms = max(err, err_rows), plain_ms + ms_rows
+            # the rows are held after the last phase, with every other
+            # path's (`hold_viterbi_rows`); the outputs wait on the host
+            pending = {"path": path, "calls": []}
+            for args, (hmms, queries) in zip(calls, batches):
+                got = kernel(*args)
+                if not bool(got[-1].all()):
+                    raise AssertionError("a replayed Viterbi row has no "
+                                         "valid path")
+                pending["calls"].append((got.cpu(), hmms, queries))
+            err = plain_ms = None
             ms = kernel_ms(kernel, calls)
             prev_calls = [a for a in calls if a[0].shape[1] <= PREV_MAX_L]
-            extra = {"held_in_plain_batches": [len(short), len(rest)],
-                     "ms_prev_calls": kernel_ms(kernel, prev_calls),
+            extra = {"ms_prev_calls": kernel_ms(kernel, prev_calls),
                      "prev_calls": len(prev_calls)}
         elif name == "e2e":
             err, ms, plain_ms, extra = replay_e2e(k, calls,
@@ -1063,12 +1085,16 @@ def replay(path, table, caps, counts):
             for cls in ("full", "band"):
                 extra[f"{cls}_bound_ms"] = telemetry.bound_ms(
                     f"e2e_{cls}", counts.get(f"e2e_{cls}", {}))[0]
-        print(f"{name}: {len(calls)} {path}-path calls timed and held "
-              f"against the plain version in "
-              f"{time.perf_counter() - t0:.1f} s: max_abs_err {err} "
-              f"(tolerance 0), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {bound:.6f} ms by {bound_by} ({n_bytes} bytes, "
-              f"{n_ops:.0f} operations)", flush=True)
+        if name == "viterbi":
+            held = (f"timed, their rows kept for the plain batches after "
+                    f"the last phase, in {time.perf_counter() - t0:.1f} s")
+        else:
+            held = (f"timed and held against the plain version in "
+                    f"{time.perf_counter() - t0:.1f} s: max_abs_err {err} "
+                    f"(tolerance 0), plain {plain_ms:.3f} ms")
+        print(f"{name}: {len(calls)} {path}-path calls {held}; kernel "
+              f"{ms:.3f} ms, bound {bound:.6f} ms by {bound_by} ({n_bytes} "
+              f"bytes, {n_ops:.0f} operations)", flush=True)
         if name == "e2e":
             print(f"e2e: {extra['full_calls']} full-matrix calls "
                   f"{extra['full_ms']:.3f} ms (bound "
@@ -1084,20 +1110,19 @@ def replay(path, table, caps, counts):
                   f"problems up to {PREV_DEVICE_CELLS} bucketed cells",
                   flush=True)
         elif extra:
-            print(f"viterbi: the {len(short)} calls up to and the "
-                  f"{len(rest)} over {REPLAY_MAX_L} positions held row by row "
-                  f"against two plain batches of their rows, none left "
-                  f"unheld; kernel "
-                  f"{extra['ms_prev_calls']:.3f} ms over the "
+            print(f"viterbi: kernel {extra['ms_prev_calls']:.3f} ms over the "
                   f"{extra['prev_calls']} calls up to {PREV_MAX_L} "
                   f"positions", flush=True)
-        if err != 0:
+        if err not in (0, None):
             raise AssertionError(f"{name} kernel disagrees with its plain "
                                  f"version on the {path} path's inputs")
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": bound_by,
                      "library_ms": None, "timed_calls": len(calls),
                      "held_calls": len(calls), **extra}
+        if name == "viterbi":
+            pending["entry"] = out[name]
+            PENDING_ROWS.append(pending)
     return out
 
 
@@ -1124,21 +1149,8 @@ def phase_paths():
                                         tuple(table))
     targeted = replay("targeted", table, caps, counts)
 
-    kernels = []
-    for name, k in table.items():
-        entry = {"name": name, "route": "cuda", "source": k["source"],
-                 "replaces": k["replaces"], "launches": launches[name],
-                 **targeted[name]}
-        if "also_replaces" in k:
-            entry["also_replaces"] = k["also_replaces"]
-        if name == "e2e":
-            entry["band_launches"] = launches["e2e_band"]
-        if name in wgs:
-            entry["wgs_path"] = {"launches": wgs_launches[name], **wgs[name]}
-            if name == "e2e":
-                entry["wgs_path"]["band_launches"] = wgs_launches["e2e_band"]
-        kernels.append(entry)
-    return kernels, dsdir
+    return {"wgs": (wgs_launches, wgs), "targeted": (launches, targeted)}, \
+        dsdir
 
 
 # CRAM input: the longest allele's locus and seven with read errors
@@ -1522,13 +1534,12 @@ def bam_records(data: bytes):
 
 
 def genotype_child(dsdir: str, reads: str, preset: str, name: str,
-                   threads: int, extra=(), sampler=None):
+                   threads: int, extra=(), sampler=None, timeout=600):
     """`python -m trgt_tpu_torch -vv genotype ... -t N --device cuda` in a
     child process, as a user runs it (`sampler`: a RunSampler told the
-    child's pid). Returns (prefix, wall seconds, the workers' debug lines:
-    {worker: {"ready": s, "done": s, "loci": n, "stages": {...},
-    "kernels": telemetry snapshot}}, and with N > 1 the parent's
-    `pool_timeline`)."""
+    child's pid), killed after `timeout` seconds. Returns (prefix, wall
+    seconds, the workers' debug lines (`worker_lines`), and with N > 1
+    the parent's `pool_timeline`)."""
     prefix = os.path.join(dsdir, name)
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -1544,7 +1555,7 @@ def genotype_child(dsdir: str, reads: str, preset: str, name: str,
         if sampler is not None:
             sampler.watch(proc.pid)
         try:
-            stderr = proc.communicate(timeout=600)[1]
+            stderr = proc.communicate(timeout=timeout)[1]
         except subprocess.TimeoutExpired:
             proc.kill()
             raise
@@ -1558,8 +1569,10 @@ def genotype_child(dsdir: str, reads: str, preset: str, name: str,
 
 def worker_lines(stderr: str, threads: int):
     """The `-t N` workers' debug lines of a `-vv` run's stderr: {worker:
-    {"ready": s, "done": s, "loci": n, "stages": {...}, "kernels":
-    telemetry snapshot}}, the seconds counted from its spawn."""
+    {"ready": s, "done": s, "loci": n, "stages": {...}, "counts": the
+    impure filter's reads, "routed": e2e.routed, "cuda_memory": the
+    allocator's MiB, "kernels": telemetry snapshot}}, the seconds counted
+    from its spawn."""
     workers = {}
     for line in stderr.splitlines():
         m = re.match(r"\[worker (\d+)\] DEBUG worker ready ([\d.]+) s",
@@ -1567,12 +1580,14 @@ def worker_lines(stderr: str, threads: int):
         if m:
             workers.setdefault(int(m[1]), {})["ready"] = float(m[2])
         m = re.match(r"\[worker (\d+)\] DEBUG worker done ([\d.]+) s after "
-                     r"spawn: (\d+) loci, stages (\{.*?\}), kernels "
-                     r"(\{.*\})$", line)
+                     r"spawn: (\d+) loci, stages (\{.*?\}), counts "
+                     r"(\{.*?\}), routed (\{.*?\}), cuda memory (\{.*?\}), "
+                     r"kernels (\{.*\})$", line)
         if m:
             workers.setdefault(int(m[1]), {}).update(
                 done=float(m[2]), loci=int(m[3]), stages=json.loads(m[4]),
-                kernels=json.loads(m[5]))
+                counts=json.loads(m[5]), routed=json.loads(m[6]),
+                cuda_memory=json.loads(m[7]), kernels=json.loads(m[8]))
     if threads > 1 and (len(workers) != threads or any(
             "done" not in w for w in workers.values())):
         raise AssertionError(f"-t {threads}: the workers' debug lines are "
@@ -1602,59 +1617,58 @@ POOL_THREADS = (1, 2, 4)
 
 def phase_pool():
     """A catalog of the bench generator with POOL_MIN_LOCI loci a worker
-    at -t 4 (smaller ones run on threads), under both presets with `-t
+    at -t 4 (smaller ones run on threads), under --preset wgs with `-t
     1/2/4 --device cuda`, each a child process: -t 2 and -t 4 write the
     records of -t 1, every worker that wrote a record launched the Viterbi
     kernel, and the workers together launched every kernel of the path.
-    Returns the targeted -t 4 workers' launches."""
+    The targeted preset's pool is phase 18's, at 2,500 loci."""
     from trgt_tpu_torch.engine.runner import POOL_MIN_LOCI
     from trgt_tpu_torch.utils.synth import cached_hetero_dataset
     n_loci = POOL_MIN_LOCI * POOL_THREADS[-1]
+    preset = "wgs"
     phase(f"worker pool: bench{n_loci}, -t {'/'.join(map(str, POOL_THREADS))}"
-          f" --device cuda, wgs and targeted")
+          f" --device cuda, {preset}")
     dsdir = cached_hetero_dataset(n_loci, seed=SEED, tag=f"bench{n_loci}",
                                   root=DATA_ROOT)
-    paths = {"wgs": ("reads.bam", ("flank", "viterbi", "e2e")),
-             "targeted": (low_quality_reads(dsdir),
-                          ("flank", "viterbi", "editdist", "e2e"))}
-    pool_launches = None
-    for preset, (reads, expect) in paths.items():
-        runs = {t: genotype_child(dsdir, reads, preset,
-                                  f"smoke_pool_{preset}_t{t}", t)
-                for t in POOL_THREADS}
-        want = records(runs[1][0])
-        walls = {t: round(r[1], 3) for t, r in runs.items()}
-        print(f"{preset}: walls of the child process (torch import, CUDA "
-              f"contexts and worker start-up included) {json.dumps(walls)}"
-              f" s; loci/s " + json.dumps(
-                  {t: round(n_loci / w, 3) for t, w in walls.items()}))
-        for t in POOL_THREADS[1:]:
-            same = records(runs[t][0]) == want
-            workers = runs[t][2]
-            print(f"{preset} -t {t}: records == -t 1 {same}; per worker "
-                  f"(loci, ready s, done s): " + json.dumps(
-                      {w: (v["loci"], v.get("ready"), v["done"])
-                       for w, v in sorted(workers.items())})
-                  + f"; the parent (s) {json.dumps(runs[t][3])}")
-            if not same:
-                raise AssertionError(f"-t {t} records differ from -t 1 "
-                                     f"({preset})")
-            launched = {}
-            for w, v in sorted(workers.items()):
-                counts = launch_counts(v["kernels"])
-                print(f"  worker {w} launches {json.dumps(counts)}")
-                if v["loci"] and not counts["viterbi"]:
-                    raise AssertionError(f"worker {w} wrote records without "
-                                         f"a Viterbi launch")
-                for name, n in counts.items():
-                    launched[name] = launched.get(name, 0) + n
-            missing = [name for name in expect if not launched[name]]
-            if missing:
-                raise AssertionError(f"-t {t} {preset}: no worker launched "
-                                     f"{missing}")
-            if preset == "targeted" and t == POOL_THREADS[-1]:
-                pool_launches = launched
-    return pool_launches
+    runs = {t: genotype_child(dsdir, "reads.bam", preset,
+                              f"smoke_pool_{preset}_t{t}", t)
+            for t in POOL_THREADS}
+    want = records(runs[1][0])
+    walls = {t: round(r[1], 3) for t, r in runs.items()}
+    print(f"{preset}: walls of the child process (torch import, CUDA "
+          f"contexts and worker start-up included) {json.dumps(walls)} s; "
+          f"loci/s " + json.dumps(
+              {t: round(n_loci / w, 3) for t, w in walls.items()}))
+    for t in POOL_THREADS[1:]:
+        same = records(runs[t][0]) == want
+        workers = runs[t][2]
+        print(f"{preset} -t {t}: records == -t 1 {same}; per worker (loci, "
+              f"ready s, done s): " + json.dumps(
+                  {w: (v["loci"], v.get("ready"), v["done"])
+                   for w, v in sorted(workers.items())})
+              + f"; the parent (s) {json.dumps(runs[t][3])}")
+        if not same:
+            raise AssertionError(f"-t {t} records differ from -t 1 "
+                                 f"({preset})")
+        launched = pool_launches(workers, f"-t {t} {preset}")
+        missing = [name for name in PATH_KERNELS[preset] if not launched[name]]
+        if missing:
+            raise AssertionError(f"-t {t} {preset}: no worker launched "
+                                 f"{missing}")
+
+
+def pool_launches(workers, label):
+    """Prints each worker's launches; raises unless every worker that wrote
+    a record launched the Viterbi kernel. Returns the launches summed."""
+    launched = collections.Counter()
+    for w, v in sorted(workers.items()):
+        counts = launch_counts(v["kernels"])
+        print(f"  worker {w} launches {json.dumps(counts)}")
+        if v["loci"] and not counts["viterbi"]:
+            raise AssertionError(f"{label}: worker {w} wrote records without "
+                                 f"a Viterbi launch")
+        launched.update(counts)
+    return launched
 
 
 def phase_mesh(dsdir: str):
@@ -1777,6 +1791,12 @@ SCALE_THREADS = 4
 # the scale loci whose kernel calls are replayed (`scale_replay_ids`)
 SCALE_REPLAY_LONGEST = 6
 SCALE_REPLAY_DEEPEST = 2
+# phase 18: a targeted panel of the same generator, every second read at rq
+# 0.85, and its loci whose kernel calls are replayed (`targeted_replay_ids`)
+TARGETED_SCALE_LOCI = 2500
+TARGETED_SCALE_TAG = "targeted2500"
+TARGETED_REPLAY_PAIRS = 4
+TARGETED_REPLAY_LONGEST = 2
 
 
 def make_bench(synth, d: str) -> None:
@@ -1833,6 +1853,11 @@ FILE_MD5 = {
                  "ref.fasta": "ac0af6bfcdaf47c4ca27b6a7e21025e7"},
     "scale": {"repeats.bed": "a0316fb965d6bb9a5fe0eeef01ab4f93",
               "ref.fasta": "7e46736d7dc22f2798b82596f45791da"},
+    "targeted2500": {"repeats.bed": "5268136288d55fa973db2afbbf0306cb",
+                     "ref.fasta": "b6f0776a5d6a6cc39bc3511660803c5f"},
+    # chip_profile.py scale: the same generator at 10^5 loci
+    "scale100k": {"repeats.bed": "184e72cef04aebf438cf37815e0ce4a5",
+                  "ref.fasta": "dadf311cdbc3161d9b375cb5c15ddd12"},
 }
 RUN_MD5 = {
     # phases 7 and 8 (cuda == the port's --device host == these)
@@ -1860,6 +1885,14 @@ RUN_MD5 = {
     # trgt_tpu --device host -t 6; CONCORDANCE.md's VCF md5 of this catalog
     ("scale", "wgs", "host"): ("f39a812b71134d8a0fc82b1bbc637490",
                                "6dd972ee50993e34db51f174e71b41c2"),
+    # trgt_tpu --device host -t 6 --preset targeted, every second read at
+    # rq 0.85 (phase 18)
+    ("targeted2500", "targeted", "host"): (
+        "d8acbf6b0ee82390bba0966ce2466b40",
+        "ac0c4906aa38749ccc2ae873093602e9"),
+    # trgt_tpu --device host -t 6 on chip_profile.py scale's 10^5 catalog
+    ("scale100k", "wgs", "host"): ("bd76c8b2c91e8b9bfb1172322f922094",
+                                   "d3ea299eec3a8392a626dcaeb4ebbbba"),
 }
 # VCF records in which trgt_tpu --device cpu and --device host differ on
 # the noisy catalogs (ROADMAP C4: float32 against float64 Viterbi)
@@ -1929,17 +1962,24 @@ def cuda_and_host(d, reads, preset, name, n_loci, expect, extra=()):
 def path_entry(runs):
     """{kernel: {"launches", "max_abs_err", "held_calls", "ms",
     "plain_ms"}} over the (launches, replay numbers) of a phase's cuda
-    runs: launches, held calls and times summed, the largest error."""
+    runs: launches, held calls and times summed, the largest error; the
+    Viterbi rows' plain batches (`hold_viterbi_rows`, shared among paths)
+    each counted once, and listed."""
     out = {}
     for name in ("flank", "viterbi", "editdist", "e2e"):
         e = {"launches": sum(launches[name] for launches, _ in runs),
              "max_abs_err": 0, "held_calls": 0, "ms": 0.0, "plain_ms": 0.0}
+        batches = set()
         for _, held in runs:
             if name in held:
                 e["max_abs_err"] = max(e["max_abs_err"],
                                        held[name]["max_abs_err"])
                 for key in ("held_calls", "ms", "plain_ms"):
                     e[key] += held[name][key]
+                batches.update(held[name].get("plain_batches", ()))
+        if batches:
+            e["plain_batches"] = sorted(batches)
+            e["plain_ms"] = sum(PLAIN_BATCH_MS[b] for b in batches)
         out[name] = e
     return out
 
@@ -1967,7 +2007,7 @@ def phase_adversarial():
             raise AssertionError(f"adversarial {genotyper}: cuda, host and "
                                  f"the pinned trgt_tpu records differ")
         runs.append((launches, held))
-    return path_entry(runs)
+    return runs
 
 
 def phase_noisy():
@@ -2009,18 +2049,22 @@ def phase_noisy():
                                      f"the float64 host path in {split} "
                                      f"records, trgt_tpu's paths in {pinned}")
             runs.append((launches, held))
-    return path_entry(runs)
+    return runs
 
 
-# makes the scale catalog in a process of its own (benchmarks/scale10k.py
-# does the same), so the generator's memory stays out of the readings
-_SCALE_GEN = r"""
+# makes a catalog of the bench generator in a process of its own
+# (benchmarks/scale10k.py does the same), so the generator's memory stays
+# out of the readings; with "low_rq" also reads_low_rq.bam
+_GENERATOR = r"""
 import sys, time
 sys.path.insert(0, sys.argv[1])
 from trgt_tpu_torch.utils.synth import cached_hetero_dataset
 t0 = time.perf_counter()
 d = cached_hetero_dataset(int(sys.argv[3]), seed=int(sys.argv[4]),
-                          tag="scale", root=sys.argv[2])
+                          tag=sys.argv[5], root=sys.argv[2])
+if sys.argv[6] == "low_rq":
+    import chip_smoke
+    chip_smoke.low_quality_reads(d)
 print(d, time.perf_counter() - t0)
 """
 
@@ -2040,14 +2084,29 @@ print(imported, checked, rss())
 """
 
 
-def start_scale_generator():
-    """Starts making the scale catalog; returns (process, start time)."""
+def start_generator(n: int, tag: str, low_rq: bool = False):
+    """Starts making `cached_hetero_dataset(n, seed=SEED, tag=tag)` (and,
+    with `low_rq`, its `low_quality_reads`) in a child process; returns
+    (process, start time)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen(
-        [sys.executable, "-c", _SCALE_GEN, REPO, DATA_ROOT, str(SCALE_LOCI),
-         str(SEED)], cwd=REPO, env=env, stdout=subprocess.PIPE, text=True)
+        [sys.executable, "-c", _GENERATOR, REPO, DATA_ROOT, str(n),
+         str(SEED), tag, "low_rq" if low_rq else "-"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, text=True)
     return proc, time.perf_counter()
+
+
+def wait_generator(generator, label: str, timeout: float = 900) -> str:
+    """Waits for a `start_generator` child; returns its dataset's folder."""
+    proc, t_gen = generator
+    out = proc.communicate(timeout=timeout)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"the {label} generator exited {proc.returncode}")
+    dsdir, gen_s = out.split()[-2], float(out.split()[-1])
+    print(f"{label} generator (a process of its own): {gen_s:.3f} s, ready "
+          f"{time.perf_counter() - t_gen:.3f} s after its start", flush=True)
+    return dsdir
 
 
 def peak_kib(status: str):
@@ -2061,11 +2120,22 @@ def peak_kib(status: str):
 
 class RunSampler:
     """While active, every `ms` milliseconds: `nvidia-smi` memory.used (MiB)
-    and utilization (%), and the peak RSS (VmHWM, MiB) of each process
-    under the pid given to `watch`, read from /proc."""
+    and utilization (%), and the RSS of each process under the pid given
+    to `watch`, read from /proc: its peak (VmHWM, or the largest VmRSS
+    sample where /proc has no VmHWM) and the series of the genotype
+    process's and the largest worker's VmRSS; every `apps_every` samples
+    the device memory of each compute process (`nvidia-smi
+    --query-compute-apps`). Sample times are `time.perf_counter()`."""
 
-    def __init__(self, ms: int = 250):
-        self.ms, self.samples, self.peaks = ms, [], {}
+    def __init__(self, ms: int = 250, apps_every: int = 8):
+        self.ms, self.apps_every = ms, apps_every
+        self.peaks = {}
+        # (t, genotype process MiB, largest worker MiB), (t, memory.used
+        # MiB, utilization %), (t, the largest compute process's MiB)
+        self.rss_series, self.smi_series, self.app_series = [], [], []
+        # the (pid, MiB) of each compute process in the sample where their
+        # sum was largest (a container may show every process as one pid)
+        self.app_peak = []
         self.root, self.done = None, threading.Event()
 
     def watch(self, pid: int) -> None:
@@ -2089,41 +2159,85 @@ class RunSampler:
                 stack += children.get(pid, [])
         return out
 
+    def _compute_apps(self):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True).stdout
+        used = []
+        for line in out.splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) == 2 and all(p.isdigit() for p in parts):
+                used.append((int(parts[0]), int(parts[1])))
+        if sum(m for _, m in used) > sum(m for _, m in self.app_peak):
+            self.app_peak = used
+        self.app_series.append((time.perf_counter(),
+                                max((m for _, m in used), default=0)))
+
     def _loop(self):
+        tick = 0
         while not self.done.wait(self.ms / 1000):
             if self.root is None:
                 continue
+            t, parent, worker = time.perf_counter(), 0.0, 0.0
             for pid in self._tree():
                 try:
                     with open(f"/proc/{pid}/status") as fh:
-                        m = peak_kib(fh.read())
+                        status = fh.read()
                     with open(f"/proc/{pid}/cmdline", "rb") as fh:
                         kind = "worker" if b"engine.worker" in fh.read() \
                             else "genotype process"
                 except OSError:
                     continue
+                m = peak_kib(status)
                 if m:
                     key = (kind, pid)
                     self.peaks[key] = max(self.peaks.get(key, 0), m / 1024)
+                now = re.search(r"VmRSS:\s+(\d+) kB", status)
+                if now and kind == "worker":
+                    worker = max(worker, int(now[1]) / 1024)
+                elif now and pid == self.root:
+                    parent = int(now[1]) / 1024
+            self.rss_series.append((t, parent, worker))
+            if tick % self.apps_every == 0:
+                self._compute_apps()
+            tick += 1
+
+    def _read_smi(self):
+        """Reads nvidia-smi's samples as they come (a pipe left unread
+        fills and stops it). It stamps each in local time; the offset
+        turns its epoch into this process's perf_counter."""
+        for line in self.proc.stdout:
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) != 3 or not all(p.isdigit() for p in parts[1:]):
+                continue
+            stamp, _, frac = parts[0].partition(".")
+            try:
+                epoch = time.mktime(time.strptime(
+                    stamp, "%Y/%m/%d %H:%M:%S")) + float(f"0.{frac}")
+            except ValueError:
+                continue
+            self.smi_series.append((epoch - self.offset, int(parts[1]),
+                                    int(parts[2])))
 
     def __enter__(self):
+        self.offset = time.time() - time.perf_counter()
         self.proc = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=memory.used,utilization.gpu",
-             "--format=csv,noheader,nounits", f"-lms={self.ms}"],
-            stdout=subprocess.PIPE, text=True)
-        self.thread = threading.Thread(target=self._loop, daemon=True)
-        self.thread.start()
+            ["nvidia-smi", "--query-gpu=timestamp,memory.used,"
+             "utilization.gpu", "--format=csv,noheader,nounits",
+             f"-lms={self.ms}"], stdout=subprocess.PIPE, text=True)
+        self.threads = [threading.Thread(target=fn, daemon=True)
+                        for fn in (self._loop, self._read_smi)]
+        for t in self.threads:
+            t.start()
         return self
 
     def __exit__(self, *exc):
         self.done.set()
-        self.thread.join()
         self.proc.terminate()
-        out = self.proc.communicate(timeout=30)[0]
-        for line in out.splitlines():
-            parts = [p.strip() for p in line.split(",")]
-            if len(parts) == 2 and all(p.isdigit() for p in parts):
-                self.samples.append((int(parts[0]), int(parts[1])))
+        self.proc.wait(timeout=30)
+        for t in self.threads:
+            t.join(timeout=30)
 
     def peak_rss(self):
         """{"genotype process": MiB, "largest worker": MiB} from /proc."""
@@ -2159,108 +2273,183 @@ def truth_check(vcf: str, truth: dict):
     return n, failures
 
 
-def phase_scale(generator):
-    """`genotype -t SCALE_THREADS --device cuda` (the worker pool) of the
-    10^4-locus catalog as a child process: records == trgt_tpu --device
-    host's pins, SCALE_LOCI VCF records, truth AL of every error-free
-    locus; its wall, peak RSS, device memory and the workers' stages and
-    launches."""
-    proc, t_gen = generator
-    phase(f"scale: {SCALE_LOCI} loci (cached_hetero_dataset(tag='scale'), "
-          f"seed {SEED}), genotype -t {SCALE_THREADS} --device cuda")
-    out = proc.communicate(timeout=900)[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"the scale generator exited {proc.returncode}")
-    dsdir, gen_s = out.split()[-2], float(out.split()[-1])
-    print(f"generator (a process of its own, started before phase 15): "
-          f"{gen_s:.3f} s, ready {time.perf_counter() - t_gen:.3f} s after "
-          f"its start")
-    check_files("scale", dsdir)
-    import torch
-    torch.cuda.empty_cache()
-    with RunSampler() as gpu:
-        time.sleep(1)
-        prefix, wall, workers, timeline = genotype_child(
-            dsdir, "reads.bam", "wgs", "smoke_scale", SCALE_THREADS,
-            sampler=gpu)
-    print(f"scale: {SCALE_LOCI} loci in {wall:.3f} s = "
-          f"{SCALE_LOCI / wall:.3f} loci/s (the child process, start-up "
-          f"included); the parent (s) {json.dumps(timeline)}")
-    floor = [float(x) for x in subprocess.run(
-        [sys.executable, "-c", _RSS_FLOOR], check=True, capture_output=True,
-        text=True).stdout.split()]
-    print(f"scale: peak RSS (MiB, /proc samples every {gpu.ms} ms) "
-          f"{json.dumps(gpu.peak_rss())}; a fresh interpreter's RSS after "
-          f"import torch {floor[0]:.1f}, after the CUDA check "
-          f"{floor[1]:.1f}, with a CUDA context {floor[2]:.1f}")
-    mem = [m for m, _ in gpu.samples]
-    busy = [b for _, b in gpu.samples]
-    print(f"scale: nvidia-smi memory.used max {max(mem)} MiB (before the run "
-          f"{mem[0]} MiB: this script's own), utilization.gpu mean "
-          f"{sum(busy) / len(busy):.2f} % over {len(busy)} samples")
-    launched, stages = collections.Counter(), collections.Counter()
+def pool_numbers(label, workers):
+    """Prints each `-t N` worker's loci, start-up and end, stage seconds,
+    impure-filter reads and allocator MiB, and their sums over the
+    workers; raises unless every worker that wrote a record launched the
+    Viterbi kernel. Returns {"launches", "stages", "counts", "routed",
+    "editdist_pairs", "editdist_cells"} summed over the workers and
+    "cuda_memory" by worker."""
+    from trgt_tpu_torch.kernels import telemetry
+    launched = pool_launches(workers, label)
+    stages, counts = collections.Counter(), collections.Counter()
+    routed, edit = collections.Counter(), collections.Counter()
     for w, v in sorted(workers.items()):
-        counts = launch_counts(v["kernels"])
         print(f"  worker {w}: {v['loci']} loci, ready {v.get('ready')} s, "
               f"done {v['done']} s, stages {json.dumps(v['stages'])}, "
-              f"launches {json.dumps(counts)}")
-        launched.update(counts)
+              f"impure filter reads {json.dumps(v['counts'])}, cuda memory "
+              f"(MiB) {json.dumps(v['cuda_memory'])}")
         stages.update(v["stages"])
-    stages = {k: round(v, 3) for k, v in stages.items()}
-    print(f"scale: stage seconds summed over the workers "
-          f"{json.dumps(stages)}; launches {json.dumps(launched)}")
+        counts.update(v["counts"])
+        routed.update(v["routed"])
+        edit.update(telemetry.totals(v["kernels"]).get("editdist", {}))
+    out = {"launches": dict(launched),
+           "stages": {k: round(v, 3) for k, v in stages.items()},
+           "counts": dict(counts),
+           "routed": {k: round(v, 3) for k, v in routed.items()},
+           "editdist_pairs": edit["bytes_out"] // 4,
+           "editdist_cells": edit["cells"],
+           "cuda_memory": {w: v["cuda_memory"]
+                           for w, v in sorted(workers.items())}}
+    print(f"{label}, summed over the workers: stage seconds "
+          f"{json.dumps(out['stages'])}; launches {json.dumps(out['launches'])}"
+          f"; e2e.routed {json.dumps(out['routed'])}; impure filter reads "
+          f"{json.dumps(out['counts'])}; editdist pairs "
+          f"{out['editdist_pairs']}, cells {out['editdist_cells']}")
+    return out
+
+
+def scale_run(label, dsdir, reads, preset, name, n_loci, pin, timeout=600):
+    """`genotype_child` at -t SCALE_THREADS under a RunSampler: prints the
+    wall and loci/s, the peak RSS, `memory.used`, the device memory of each
+    compute process, the busy share and the workers' numbers
+    (`pool_numbers`); holds the records against RUN_MD5[pin] (pin None:
+    printed only), n_loci VCF records and the truth AL of every error-free
+    locus. Returns (prefix, sampler, workers' numbers, (start, end) on the
+    perf_counter clock, wall)."""
+    with RunSampler() as gpu:
+        time.sleep(1)
+        t0 = time.perf_counter()
+        prefix, wall, workers, timeline = genotype_child(
+            dsdir, reads, preset, name, SCALE_THREADS, sampler=gpu,
+            timeout=timeout)
+        t1 = time.perf_counter()
+    print(f"{label}: {n_loci} loci in {wall:.3f} s = {n_loci / wall:.3f} "
+          f"loci/s (the child process, start-up included); the parent (s) "
+          f"{json.dumps(timeline)}")
+    mem = [m for _, m, _ in gpu.smi_series]
+    busy = [b for _, _, b in gpu.smi_series]
+    print(f"{label}: peak RSS (MiB, /proc samples every {gpu.ms} ms) "
+          f"{json.dumps(gpu.peak_rss())}; nvidia-smi memory.used max "
+          f"{max(mem)} MiB (before the run {mem[0]} MiB), utilization.gpu "
+          f"mean {sum(busy) / len(busy):.2f} % over {len(busy)} samples; "
+          f"(pid, MiB) of each compute process at their largest sum "
+          f"(--query-compute-apps) {json.dumps(gpu.app_peak)}")
+    numbers = pool_numbers(label, workers)
     got = records_md5(prefix)
     vcf = records(prefix)[0]
     n_rec = sum(1 for line in vcf.splitlines() if not line.startswith("#"))
     with open(os.path.join(dsdir, "truth.json")) as fh:
         n_truth, failures = truth_check(vcf, json.load(fh))
-    want = RUN_MD5[("scale", "wgs", "host")]
-    print(f"scale: {n_rec} VCF records; (VCF, BAM) md5 {json.dumps(got)} == "
-          f"trgt_tpu --device host -t 6 {got == want}; truth AL of "
-          f"error-free loci {n_truth - len(failures)}/{n_truth}")
-    if got != want or n_rec != SCALE_LOCI or failures or not n_truth:
-        raise AssertionError(f"scale: records differ from trgt_tpu's, or "
+    want = RUN_MD5.get(pin) if pin else None
+    print(f"{label}: {n_rec} VCF records; (VCF, BAM) md5 {json.dumps(got)} "
+          + (f"== trgt_tpu --device host -t 6 {got == want}" if want else
+             "(no pin for this catalog)")
+          + f"; truth AL of error-free loci {n_truth - len(failures)}/"
+          f"{n_truth}")
+    if (want and got != want) or n_rec != n_loci or failures or not n_truth:
+        raise AssertionError(f"{label}: records differ from trgt_tpu's, or "
                              f"{n_rec} records, or truth failures "
                              f"{failures[:5]}")
-    missing = [k for k in ("flank", "viterbi", "e2e") if not launched[k]]
+    return prefix, gpu, numbers, (t0, t1), wall
+
+
+def phase_scale(generator):
+    """`genotype -t SCALE_THREADS --device cuda` (the worker pool) of the
+    10^4-locus catalog as a child process: records == trgt_tpu --device
+    host's pins, SCALE_LOCI VCF records, truth AL of every error-free
+    locus; its wall, peak RSS, device memory and the workers' stages and
+    launches; then `scale_replay_ids` alone (`replay_loci`). Returns (the
+    workers' launches, [(replayed loci's launches, replay numbers)])."""
+    phase(f"scale: {SCALE_LOCI} loci (cached_hetero_dataset(tag='scale'), "
+          f"seed {SEED}), genotype -t {SCALE_THREADS} --device cuda")
+    dsdir = wait_generator(generator, "scale")
+    check_files("scale", dsdir)
+    import torch
+    torch.cuda.empty_cache()
+    prefix, _, numbers, _, _ = scale_run(
+        "scale", dsdir, "reads.bam", "wgs", "smoke_scale", SCALE_LOCI,
+        ("scale", "wgs", "host"))
+    floor = [float(x) for x in subprocess.run(
+        [sys.executable, "-c", _RSS_FLOOR], check=True, capture_output=True,
+        text=True).stdout.split()]
+    print(f"scale: a fresh interpreter's RSS (MiB) after import torch "
+          f"{floor[0]:.1f}, after the CUDA check {floor[1]:.1f}, with a CUDA "
+          f"context {floor[2]:.1f}")
+    missing = [k for k in PATH_KERNELS["wgs"] if not numbers["launches"][k]]
     if missing:
         raise AssertionError(f"scale: {missing} never launched")
-    entry = replay_scale_loci(dsdir, prefix)
-    for name, e in entry.items():
-        e["replayed_loci_launches"] = e["launches"]
-        e["launches"] = launched[name]
-    return entry
+    launches, held, _ = replay_loci("scale loci", dsdir, prefix,
+                                    scale_replay_ids(), "reads.bam", "wgs")
+    shapes, bench = PATH_SHAPES["scale loci"], [
+        PATH_SHAPES[p] for p in ("wgs", "targeted")]
+    beyond = {k: v > max(b[k] for b in bench) for k, v in shapes.items()
+              if not k.startswith("band_max")}
+    print(f"scale loci: shapes beyond bench{N_LOCI}'s paths "
+          f"{json.dumps(beyond)}")
+    return numbers["launches"], [(launches, held)]
+
+
+def replay_ids(n_loci, n_longest, n_other, other):
+    """Ids of the `n_longest` loci of `hetero_loci(n_loci, seed=SEED)` with
+    the longest alleles (the longest Viterbi queries, flank texts over a
+    tile, the widest bands) and of the first `n_other` of the rest in the
+    order of the sort key `other`."""
+    from trgt_tpu_torch.utils.synth import hetero_loci
+    loci = hetero_loci(n_loci, seed=SEED)
+    longest = sorted(loci, key=lambda lc: -max(lc.allele_copies)
+                     * len(lc.motif))[:n_longest]
+    picked = {lc.id for lc in longest}
+    rest = sorted((lc for lc in loci if lc.id not in picked), key=other)
+    return picked | {lc.id for lc in rest[:n_other]}
 
 
 def scale_replay_ids():
     """The scale loci whose kernel calls are replayed: the longest alleles
-    (flank texts over a tile, bands near their caps, the longest Viterbi
-    queries) and the deepest error-free loci (the most reads a call)."""
-    from trgt_tpu_torch.utils.synth import hetero_loci
-    loci = hetero_loci(SCALE_LOCI, seed=SEED)
-    longest = sorted(loci, key=lambda lc: -max(lc.allele_copies)
-                     * len(lc.motif))[:SCALE_REPLAY_LONGEST]
-    picked = {lc.id for lc in longest}
-    deepest = sorted((lc for lc in loci if not lc.error_rate
-                      and lc.id not in picked),
-                     key=lambda lc: -lc.depth)[:SCALE_REPLAY_DEEPEST]
-    return {lc.id for lc in longest + deepest}
+    and the deepest error-free loci (the most reads a call)."""
+    return replay_ids(SCALE_LOCI, SCALE_REPLAY_LONGEST, SCALE_REPLAY_DEEPEST,
+                      lambda lc: (bool(lc.error_rate), -lc.depth))
 
 
-def replay_scale_loci(dsdir, prefix):
-    """The loci of `scale_replay_ids` alone, genotyped in this process with
-    --device cuda (`capture_cuda`): their records equal those of the -t 4
-    run, and every kernel call equals its plain version. Returns
-    path_entry's numbers."""
-    ids = scale_replay_ids()
+def cluster_pairs(lc) -> float:
+    """The edit-distance pairs that the cluster genotyper is expected to
+    send for a locus of the bench generator: a read whose TR carries a
+    substitution is a sequence of its own (half the depth on each allele,
+    substitutions at the locus's error rate), and every pair of them goes
+    to the kernel where both alleles are at most 100 bases (len_a * len_b
+    <= MAX_OPS); 0 where the longer allele is longer."""
+    from trgt_tpu_torch.kernels.editdist import MAX_OPS
+    lens = [c * len(lc.motif) for c in lc.allele_copies]
+    if max(lens) ** 2 > MAX_OPS:
+        return 0.0
+    distinct = sum(lc.depth / 2 * (1 - (1 - (lc.error_rate or 0.0)) ** n)
+                   for n in lens)
+    return distinct * (distinct - 1) / 2
+
+
+def targeted_replay_ids():
+    """The targeted-scale loci whose kernel calls are replayed: the
+    longest alleles (the impure filter's longest Viterbi queries too) and
+    the loci with the most cluster pairs (`cluster_pairs`: the
+    edit-distance kernel's largest calls)."""
+    return replay_ids(TARGETED_SCALE_LOCI, TARGETED_REPLAY_LONGEST,
+                      TARGETED_REPLAY_PAIRS, lambda lc: -cluster_pairs(lc))
+
+
+def replay_loci(label, dsdir, prefix, ids, reads, preset):
+    """The loci `ids` alone, genotyped in this process with --device cuda
+    (`capture_cuda`): their records equal those of the `-t N` run at
+    `prefix`, and every kernel call equals its plain version (`replay`).
+    Returns (launches, replay numbers, the run's counters)."""
     with open(os.path.join(dsdir, "repeats.bed")) as fh:
         lines = [line for line in fh
                  if re.search(r"ID=([^;]+)", line)[1] in ids]
-    with open(os.path.join(dsdir, "repeats_replay.bed"), "w") as fh:
+    bed = f"repeats_{label.replace(' ', '_')}.bed"
+    with open(os.path.join(dsdir, bed), "w") as fh:
         fh.writelines(lines)
     sub, launches, counts, caps = capture_cuda(
-        dsdir, "reads.bam", "wgs", name="smoke_scale_replay",
-        n_loci=len(lines), repeats="repeats_replay.bed")
+        dsdir, reads, preset, name=f"smoke_{label.replace(' ', '_')}",
+        n_loci=len(lines), repeats=bed)
     launches.pop("e2e_band")
     vcf, bam = records(sub)
     full_vcf, full_bam = records(prefix)
@@ -2269,21 +2458,128 @@ def replay_scale_loci(dsdir, prefix):
     sub_bam = collections.Counter(bam_records(bam))
     same_vcf = vcf.splitlines()[1:] == want
     same_bam = not sub_bam - collections.Counter(bam_records(full_bam))
-    print(f"scale loci {sorted(ids)} alone: {len(lines)} VCF records == the "
+    print(f"{label} {sorted(ids)} alone: {len(lines)} VCF records == the "
           f"-t {SCALE_THREADS} run's {same_vcf}; their "
           f"{sum(sub_bam.values())} spanning-BAM records among its "
           f"{same_bam}; launches {json.dumps(launches)}")
     if len(lines) != len(ids) or not same_vcf or not same_bam:
-        raise AssertionError("the scale loci alone differ from the -t "
+        raise AssertionError(f"{label} alone differ from the -t "
                              f"{SCALE_THREADS} run")
-    held = replay("scale loci", kernel_table(), caps, counts)
-    shapes, bench = PATH_SHAPES["scale loci"], [
-        PATH_SHAPES[p] for p in ("wgs", "targeted")]
-    beyond = {k: v > max(b[k] for b in bench) for k, v in shapes.items()
-              if not k.startswith("band_max")}
-    print(f"scale loci: shapes beyond bench{N_LOCI}'s paths "
-          f"{json.dumps(beyond)}")
-    return path_entry([(launches, held)])
+    held = replay(label, kernel_table(), caps, counts)
+    return launches, held, counts
+
+
+def phase_targeted_scale(generator):
+    """`genotype --preset targeted -t SCALE_THREADS --device cuda` of the
+    2,500-locus catalog, every second read at rq 0.85, as a child process:
+    records == trgt_tpu --device host -t 6's pins, 2,500 VCF records,
+    truth AL of every error-free locus, every worker that wrote a record
+    launched Viterbi and the workers together all four kernels; then
+    `targeted_replay_ids` alone (`replay_loci`). Returns (the workers'
+    numbers, [(replayed loci's launches, replay numbers)])."""
+    phase(f"targeted at scale: {TARGETED_SCALE_LOCI} loci "
+          f"(cached_hetero_dataset(tag={TARGETED_SCALE_TAG!r}), seed {SEED}),"
+          f" every second read rq 0.85, genotype --preset targeted -t "
+          f"{SCALE_THREADS} --device {DEVICE}")
+    dsdir = wait_generator(generator, TARGETED_SCALE_TAG)
+    check_files(TARGETED_SCALE_TAG, dsdir)
+    import torch
+    torch.cuda.empty_cache()
+    prefix, _, numbers, _, _ = scale_run(
+        "targeted at scale", dsdir, LOW_RQ_READS, "targeted",
+        "smoke_targeted_scale", TARGETED_SCALE_LOCI,
+        (TARGETED_SCALE_TAG, "targeted", "host"))
+    missing = [k for k in PATH_KERNELS["targeted"]
+               if not numbers["launches"][k]]
+    if missing:
+        raise AssertionError(f"targeted at scale: no worker launched "
+                             f"{missing}")
+    launches, held, counts = replay_loci(
+        "targeted loci", dsdir, prefix, targeted_replay_ids(), LOW_RQ_READS,
+        "targeted")
+    edit = counts.get("editdist", {})
+    print(f"targeted loci alone: editdist pairs {edit.get('bytes_out', 0) // 4}"
+          f", cells {edit.get('cells', 0)}")
+    return numbers, [(launches, held)]
+
+
+# the Viterbi calls of every replayed path, their rows held against the
+# plain version after the last phase (`hold_viterbi_rows`): {"path", "calls":
+# [(kernel output on the host, hmms, queries)], "entry": the path's replay
+# numbers, filled in then}
+PENDING_ROWS = []
+# bytes one batch of the plain Viterbi may take for its traceback words
+# (reckoned as 18 bytes a row, position and state: the int64 predecessors
+# and validity flags, listed and then stacked)
+PLAIN_VITERBI_BYTES = 16 << 30
+# {plain batch: ms} of `hold_viterbi_rows`
+PLAIN_BATCH_MS = {}
+
+
+def plain_row_batches(calls):
+    """`calls` (kernel output, hmms, queries) in the order of their padded
+    query length, cut into batches of at most PLAIN_VITERBI_BYTES."""
+    batches, cur = [], []
+    for call in sorted(calls, key=lambda c: c[0].shape[0]):
+        rows = sum(len(c[2]) for c in cur) + len(call[2])
+        length = call[0].shape[0]
+        states = max(h.num_states for c in cur + [call] for h in c[1])
+        if cur and 18 * rows * length * states > PLAIN_VITERBI_BYTES:
+            batches.append(cur)
+            cur = []
+        cur.append(call)
+    if cur:
+        batches.append(cur)
+    return batches
+
+
+def hold_viterbi_rows():
+    """Every replayed path's Viterbi calls against the plain version: the
+    rows of all calls up to REPLAY_MAX_L positions in one batch, those of
+    all longer calls in another (each cut at PLAIN_VITERBI_BYTES), held
+    call by call (`hold_rows`). Fills each path's max_abs_err, plain_ms
+    (the batches that held its rows) and held_in_plain_batches."""
+    from trgt_tpu_torch.kernels import viterbi as vt
+    recs = list(PENDING_ROWS)
+    PENDING_ROWS.clear()
+    calls = [(got, hmms, queries, rec) for rec in recs
+             for got, hmms, queries in rec["calls"]]
+    short = [c for c in calls if c[0].shape[0] - 1 <= REPLAY_MAX_L]
+    rest = [c for c in calls if c[0].shape[0] - 1 > REPLAY_MAX_L]
+    batches = plain_row_batches(short) + plain_row_batches(rest)
+    phase(f"replay: the Viterbi rows of {len(recs)} paths ({len(calls)} "
+          f"calls) against {len(batches)} plain batches")
+    for rec in recs:
+        rec.update(err=0, plain_ms=0.0, batches=[])
+    for i, batch in enumerate(batches):
+        errs, ms = hold_rows(vt.viterbi_plain, [c[0] for c in batch],
+                             [(c[1], c[2]) for c in batch])
+        PLAIN_BATCH_MS[i] = ms
+        paths = []
+        for (_, _, _, rec), err in zip(batch, errs):
+            rec["err"] = max(rec["err"], err)
+            if i not in rec["batches"]:
+                rec["batches"].append(i)
+                rec["plain_ms"] += ms
+                paths.append(rec["path"])
+        print(f"plain batch {i}: {sum(len(c[2]) for c in batch)} rows of "
+              f"{len(batch)} calls, {batch[-1][0].shape[0] - 1} positions, "
+              f"paths {paths}: {ms:.3f} ms, max_abs_err {max(errs)}",
+              flush=True)
+    for rec in recs:
+        n_short = sum(1 for c in short if c[3] is rec)
+        rec["entry"].update(
+            max_abs_err=rec["err"], plain_ms=rec["plain_ms"],
+            plain_batches=rec["batches"],
+            held_in_plain_batches=[n_short, len(rec["calls"]) - n_short])
+        print(f"viterbi: the {len(rec['calls'])} {rec['path']}-path calls "
+              f"held row by row in plain batches {rec['batches']} "
+              f"({rec['plain_ms']:.3f} ms): max_abs_err {rec['err']} "
+              f"(tolerance 0)")
+    bad = [rec["path"] for rec in recs if rec["err"] != 0]
+    if bad:
+        raise AssertionError(f"viterbi kernel disagrees with its plain "
+                             f"version on the paths {bad}")
 
 
 def main() -> int:
@@ -2294,67 +2590,86 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
-    generator = []
+    generators = []
     try:
-        return run_phases(t_start, generator)
+        return run_phases(t_start, generators)
     finally:
-        for proc, _ in generator:
+        for proc, _ in generators:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
 
 
-def run_phases(t_start, generator) -> int:
+def run_phases(t_start, generators) -> int:
     import torch
+    seconds = {}
+
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        print(f"   ({seconds[label]:.1f} s)", flush=True)
+        return out
+
     phase_env()
-    for fn in (phase_build, phase_flank, phase_viterbi, phase_editdist,
-               phase_e2e_fuzz):
-        t0 = time.perf_counter()
-        fn()
-        print(f"   ({time.perf_counter() - t0:.1f} s)")
-    kernels, dsdir = phase_paths()
-    t_new = time.perf_counter()
-    t0 = time.perf_counter()
-    cram_launches = phase_cram(dsdir)
-    print(f"   ({time.perf_counter() - t0:.1f} s)")
-    for entry in kernels:
-        entry["cram_path"] = {"launches": cram_launches[entry["name"]]}
-    for fn in (phase_commands, phase_merge_scale):
-        t0 = time.perf_counter()
-        fn(dsdir)
-        print(f"   ({time.perf_counter() - t0:.1f} s)")
-    print(f"CRAM, commands and merge-at-scale phases: "
-          f"{time.perf_counter() - t_new:.1f} s")
-    t_new = time.perf_counter()
-    t0 = time.perf_counter()
-    pool_launches = phase_pool()
-    print(f"   ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    mesh_launches = phase_mesh(dsdir)
-    print(f"   ({time.perf_counter() - t0:.1f} s)")
-    t0 = time.perf_counter()
-    phase_ploidy_shards(dsdir)
-    print(f"   ({time.perf_counter() - t0:.1f} s)")
-    for entry in kernels:
-        entry["pool_path"] = {"launches": pool_launches[entry["name"]]}
-        entry["mesh_path"] = {"launches_by_shard":
-                              mesh_launches[entry["name"]]}
-    print(f"worker pool, mesh, karyotype and shard phases: "
-          f"{time.perf_counter() - t_new:.1f} s")
-    t_new = time.perf_counter()
-    # the 10^4 catalog is made beside phases 15-16 (their host times share
-    # the CPU with it), none of the phases before
-    generator.append(start_scale_generator())
-    for key, fn, args in (("adversarial_path", phase_adversarial, ()),
-                          ("noisy_path", phase_noisy, ()),
-                          ("scale_path", phase_scale, generator)):
-        t0 = time.perf_counter()
-        numbers = fn(*args)
-        print(f"   ({time.perf_counter() - t0:.1f} s)")
-        for entry in kernels:
-            entry[key] = numbers[entry["name"]]
-    print(f"adversarial, noisy and scale phases: "
-          f"{time.perf_counter() - t_new:.1f} s")
+    for label, fn in (("2 build", phase_build), ("3 flank", phase_flank),
+                      ("4 viterbi", phase_viterbi),
+                      ("5 editdist", phase_editdist),
+                      ("6 e2e", phase_e2e_fuzz)):
+        run(label, fn)
+    paths, dsdir = run("7-8 paths", phase_paths)
+    cram_launches = run("9 cram", phase_cram, dsdir)
+    run("10 commands", phase_commands, dsdir)
+    run("11 merge at scale", phase_merge_scale, dsdir)
+    # the 10^4 and 2,500-locus catalogs are made beside phases 12-16 (their
+    # host-clock numbers share the CPU with them), none of the phases before
+    generators.append(start_generator(SCALE_LOCI, "scale"))
+    generators.append(start_generator(TARGETED_SCALE_LOCI, TARGETED_SCALE_TAG,
+                                      low_rq=True))
+    run("12 worker pool", phase_pool)
+    mesh_launches = run("13 mesh", phase_mesh, dsdir)
+    run("14 karyotype and shards", phase_ploidy_shards, dsdir)
+    adversarial = run("15 adversarial", phase_adversarial)
+    noisy = run("16 noisy", phase_noisy)
+    scale_launched, scale_runs = run("17 scale", phase_scale, generators[0])
+    targeted_scale, targeted_runs = run(
+        "18 targeted at scale", phase_targeted_scale, generators[1])
+    run("19 viterbi rows", hold_viterbi_rows)
+
+    loci_paths = {"scale_path": (scale_launched, path_entry(scale_runs)),
+                  "targeted_scale_path": (targeted_scale["launches"],
+                                          path_entry(targeted_runs))}
+    kernels = []
+    for name, k in kernel_table().items():
+        launches, held = paths["targeted"]
+        entry = {"name": name, "route": "cuda", "source": k["source"],
+                 "replaces": k["replaces"], "launches": launches[name],
+                 **held[name]}
+        if "also_replaces" in k:
+            entry["also_replaces"] = k["also_replaces"]
+        if name == "e2e":
+            entry["band_launches"] = launches["e2e_band"]
+        wgs_launches, wgs = paths["wgs"]
+        if name in wgs:
+            entry["wgs_path"] = {"launches": wgs_launches[name], **wgs[name]}
+            if name == "e2e":
+                entry["wgs_path"]["band_launches"] = wgs_launches["e2e_band"]
+        entry["cram_path"] = {"launches": cram_launches[name]}
+        entry["pool_path"] = {"launches": targeted_scale["launches"][name]}
+        entry["mesh_path"] = {"launches_by_shard": mesh_launches[name]}
+        entry["adversarial_path"] = path_entry(adversarial)[name]
+        entry["noisy_path"] = path_entry(noisy)[name]
+        for key, (launched, numbers) in loci_paths.items():
+            entry[key] = dict(numbers[name])
+            entry[key]["replayed_loci_launches"] = entry[key]["launches"]
+            entry[key]["launches"] = launched[name]
+        if name == "editdist":
+            entry["targeted_scale_path"]["pairs"] = \
+                targeted_scale["editdist_pairs"]
+            entry["targeted_scale_path"]["cells"] = \
+                targeted_scale["editdist_cells"]
+        kernels.append(entry)
+    print(f"phase seconds {json.dumps(seconds)}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(gpu_name_power())
     print(json.dumps({"kernels": kernels}))

@@ -108,3 +108,29 @@ def test_cuda_engine_matches_host(dataset, genotyper):
     if genotyper == "cluster":
         assert launched["editdist"] > 0
     assert got == port_results(dataset, genotyper, None)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_hands_back_the_allocator_cache(dataset):
+    """ROADMAP C10: `BatchPipeline` empties the CUDA caching allocator's
+    cache after each batch's device stages, so a run of several batches
+    leaves no more reserved than there was before it, though the batches
+    did reserve memory on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trgt_tpu_torch.engine.pipeline import BatchPipeline
+    fasta, bed, bam = dataset
+    dev = torch.device("cuda")
+    params = Params(min_flank_id_frac=0.7, min_read_qual=0.98,
+                    search_flank_len=250, max_depth=250,
+                    aln_scoring=TrgtScoring(2, 5, 1))
+    loci = iter_loci(bed, FastaReader(fasta), Karyotype.new("XX"), 250,
+                     Genotyper.from_str("cluster"))
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = list(BatchPipeline(params, dev, batch_size=1).process(
+        loci, BamReader(bam)))
+    assert len(got) == 4
+    assert torch.cuda.max_memory_reserved(dev) > reserved
+    assert torch.cuda.memory_reserved(dev) == reserved

@@ -64,6 +64,10 @@ PURITY_CUTOFF = 0.9
 # the other stages, so the stage times sum to MORE than end-to-end wall
 # time. The lock makes the += safe across those threads.
 STAGE_TIMES: Counter = Counter()
+# reads the impure-read filter (targeted preset) labelled with the Viterbi
+# path ("impure_filter_labelled") and dropped ("impure_filter_dropped"),
+# summed over the calls of a process like STAGE_TIMES
+STAGE_COUNTS: Counter = Counter()
 _STAGE_LOCK = threading.Lock()
 
 
@@ -186,6 +190,12 @@ class BatchPipeline:
             self._stage_genotype(states)
         with _timed("annotate"):
             self._stage_annotate(states)
+        if self.device is not None and self.device.type == "cuda":
+            # every batch pads to new shapes, and the caching allocator
+            # keeps the blocks of each: over 10^5 loci a worker's reserve
+            # grew to 1.1-1.7 GiB against 0.12-0.19 GiB ever in use at once
+            # (PERF.md, PR 10). The batch's tensors are gone by now.
+            torch.cuda.empty_cache()
 
         with _timed("assemble"):
             for st in states:
@@ -359,6 +369,8 @@ class BatchPipeline:
                 seq = replace_invalid_bases(seq, "ATCG")
                 requests.append((st, ri, hmm, list(motifs), seq))
         purities: Dict[Tuple[int, int], float] = {}
+        with _STAGE_LOCK:
+            STAGE_COUNTS["impure_filter_labelled"] += len(requests)
         if requests:
             paths = self._viterbi([r[2] for r in requests],
                                   [r[4] for r in requests])
@@ -387,6 +399,8 @@ class BatchPipeline:
             if num_filtered:
                 log.warning("%s: Filtered out %d impure reads",
                             st.locus.id, num_filtered)
+                with _STAGE_LOCK:
+                    STAGE_COUNTS["impure_filter_dropped"] += num_filtered
             st.reads = [r for r, _ in kept]
             st.spans = [s for _, s in kept]
 

@@ -69,9 +69,9 @@ def worker_main(spec: dict) -> int:
     from ..io.catalog import iter_loci
     from ..io.fasta import FastaReader
     from ..io.vcf_write import VcfWriter
-    from ..kernels import telemetry
+    from ..kernels import e2e, telemetry
     from ..utils import Genotyper, Karyotype, TrgtScoring
-    from .pipeline import STAGE_TIMES, BatchPipeline
+    from .pipeline import STAGE_COUNTS, STAGE_TIMES, BatchPipeline
     from .runner import iter_spanning_records, open_alignments
     from .workflow import Params
 
@@ -192,11 +192,29 @@ def worker_main(spec: dict) -> int:
     with out_lock:
         out.write(b"E" + struct.pack("<QQ", n_ok, n_err))
         out.flush()
-    log.debug("worker done %.3f s after spawn: %d loci, stages %s, kernels "
-              "%s", time.time() - spec["spawned_at"], n_ok,
+    log.debug("worker done %.3f s after spawn: %d loci, stages %s, counts "
+              "%s, routed %s, cuda memory %s, kernels %s",
+              time.time() - spec["spawned_at"], n_ok,
               json.dumps({k: round(v, 3) for k, v in STAGE_TIMES.items()}),
+              json.dumps(dict(STAGE_COUNTS)),
+              json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                          for k, v in e2e.routed.items()}),
+              json.dumps(cuda_memory(device)),
               json.dumps(telemetry.snapshot()))
     return 0
+
+
+def cuda_memory(device) -> dict:
+    """MiB the caching allocator handed out at most over the run and holds
+    now ({} off a card): a leak grows the first, the allocator's cache only
+    the second."""
+    if device is None or device.type != "cuda":
+        return {}
+    import torch
+    return {"max_allocated_mib": round(
+                torch.cuda.max_memory_allocated(device) / 2**20, 3),
+            "reserved_mib": round(
+                torch.cuda.memory_reserved(device) / 2**20, 3)}
 
 
 if __name__ == "__main__":
