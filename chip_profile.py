@@ -5,6 +5,7 @@
     python3 chip_profile.py streams
     python3 chip_profile.py pool PARENT_TREE [96|384|paths-N|busy[-N][:wgs|:targeted] ...]
     python3 chip_profile.py scale [n=100000] [threads=4] [parent=TREE]
+    python3 chip_profile.py release [CELL]
 
 `scale` holds `genotype -t 4 --device cuda` at the JAX package's largest
 scale point (benchmarks/scale10k.py --n 100000, CONCORDANCE.md) and at
@@ -29,6 +30,13 @@ archive`) the 10^4 catalog also runs under that tree before this tree's
 10^4 run and after its n-locus run (wall and loci/s, records == the pin).
 The 10^5 catalog takes about 15 minutes to make, its run 20-30 on the
 H100: give the call 3600 s.
+
+`release` times the per-batch `torch.cuda.empty_cache()` of
+`BatchPipeline._finish_batch` (ROADMAP C12): `bench_torch.py --cell CELL
+--repeats 1` (default scale10k-wgs-t4) under this tree and under a copy
+made under build/ without that one line, copy, tree, tree, copy, copy,
+tree, on one data root, both trees' kernels built first; each turn's
+loci/s, then each side's median and quartiles. Give the call about 20 minutes for the 10^4 cell.
 
 `pool` times `genotype --device cuda` of bench96 under both presets as a
 user runs it, one child process per run, in rounds (forward, backward,
@@ -78,6 +86,7 @@ Needs a CUDA device; imports nothing of JAX or of trgt_tpu.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -605,6 +614,74 @@ def scale(n: int = SCALE_N, threads: int = cs.SCALE_THREADS,
         raise AssertionError(f"scale {sizes[-1]}: memory not flat: {grown}")
 
 
+# the per-batch release of the caching allocator (ROADMAP C10, C12)
+RELEASE_LINE = "            torch.cuda.empty_cache()\n"
+RELEASE_ORDER = ("copy", "tree", "tree", "copy", "copy", "tree")
+
+
+def release(cell: str = "scale10k-wgs-t4") -> None:
+    """The cost of `BatchPipeline._finish_batch`'s per-batch
+    `torch.cuda.empty_cache()`: `bench_torch.py --cell CELL --repeats 1`
+    under this tree and under a copy made under build/ without that line,
+    in turns (RELEASE_ORDER: three runs each), on one data root. Prints
+    each turn's loci/s, peak memory.used and summed annotate seconds, then
+    each side's median and quartiles."""
+    import statistics
+    import bench_torch
+    copy = os.path.join(cs.REPO, "build", "without_release")
+    if os.path.exists(copy):
+        shutil.rmtree(copy)
+    os.makedirs(copy)
+    for name in ("bench_torch.py", "chip_smoke.py", "chip_profile.py"):
+        shutil.copy(os.path.join(cs.REPO, name), copy)
+    shutil.copytree(os.path.join(cs.REPO, "trgt_tpu_torch"),
+                    os.path.join(copy, "trgt_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(copy, "trgt_tpu_torch", "engine", "pipeline.py")
+    with open(path) as fh:
+        source = fh.read()
+    if source.count(RELEASE_LINE) != 1:
+        raise RuntimeError("engine/pipeline.py: the release line moved")
+    with open(path, "w") as fh:
+        fh.write(source.replace(RELEASE_LINE, RELEASE_LINE.replace(
+            "torch.cuda.empty_cache()", "pass")))
+    trees = {"tree": cs.REPO, "copy": copy}
+    # each tree's kernels built before the turns, so that no turn pays it
+    for tree in trees.values():
+        subprocess.run([sys.executable, "-c", "from trgt_tpu_torch.kernels "
+                        "import _build; _build.build()"], cwd=tree,
+                       env=dict(os.environ, PYTHONPATH=tree), check=True)
+    rates = {"tree": [], "copy": []}
+    for turn, side in enumerate(RELEASE_ORDER):
+        proc = subprocess.run(
+            [sys.executable, os.path.join(trees[side], "bench_torch.py"),
+             "--cell", cell, "--repeats", "1", "--data-root", cs.DATA_ROOT],
+            cwd=trees[side], capture_output=True, text=True, timeout=1800)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{side} turn {turn}: bench_torch.py exited "
+                               f"{proc.returncode}:\n{proc.stdout[-2000:]}"
+                               f"\n{proc.stderr[-3000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        rate = result["loci_per_s"]["median"]
+        rates[side].append(rate)
+        print(f"release turn {turn} ({side}): {rate:.3f} loci/s, correct "
+              f"{result['correct']}, memory.used peak "
+              f"{result['memory_used_mib']} MiB, busy share "
+              f"{result['busy_share']}, annotate "
+              f"{(result['stages'] or {}).get('annotate')} s, host anchor "
+              f"{result['host_loci_per_s']:.3f} loci/s", flush=True)
+        print(json.dumps(result), flush=True)
+        if not result["correct"]:
+            raise AssertionError(f"{side} turn {turn}: not correct")
+    for side, values in rates.items():
+        q = bench_torch.quartiles(values)
+        print(f"release: {side} ({'with' if side == 'tree' else 'without'} "
+              f"the per-batch release) loci/s median {q['median']:.3f}, "
+              f"p25 {q['p25']:.3f}, p75 {q['p75']:.3f}, runs "
+              f"{[round(v, 3) for v in values]}; spread "
+              f"{statistics.pstdev(values):.3f}")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -619,6 +696,11 @@ def main() -> int:
         scale(int(opts.get("n", SCALE_N)),
               int(opts.get("threads", cs.SCALE_THREADS)),
               os.path.abspath(opts["parent"]) if "parent" in opts else "")
+        return 0
+    if preset == "release":
+        print(cs.gpu_name_power())
+        release(*sys.argv[2:3])
+        print(cs.gpu_name_power())
         return 0
     if preset in ("scaling", "streams"):
         print(cs.gpu_name_power())

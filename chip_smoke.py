@@ -118,8 +118,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   and memory.used; then the loci with the most cluster
                   pairs and the longest alleles alone in this process:
                   records == the -t 4 run's, their kernel calls replayed
- 19. Viterbi rows the rows of every replayed path's Viterbi calls (phases
-                  7-8, 15-18) held against the plain version in a few
+ 19. flags       96 loci of the bench generator, TRs scaled to at most 1
+                  kb, under each flag set of tests/test_torch_flags.py
+                  (--max-depth 2 and 20, --aln-scoring under both
+                  presets, --min-flank-id-frac 0.9, --min-read-quality
+                  0.5 on reads of mixed rq, --output-flank-len 10): cuda
+                  == host records, every kernel call replayed as in
+                  phases 7-8, the reservoir walk, the downsample and the
+                  quality filter seen to run; then the catalog as a CRAM
+                  (the port's CramWriter) through the -t 2 worker pool
+                  under --device cuda: the VCF records of the BAM cuda
+                  run and the records of the CRAM host run
+ 20. bench        `bench_torch.py --cell bench96-wgs --repeats 1` as a
+                  child process: its result line correct, on the card,
+                  with flank, Viterbi and e2e launched
+ 21. Viterbi rows the rows of every replayed path's Viterbi calls (phases
+                  7-8, 15-19) held against the plain version in a few
                   batches (see below)
 Phases 15-18 first check the md5s of the generated repeats.bed and
 ref.fasta, so that a generator difference on this machine shows as such.
@@ -134,7 +148,7 @@ is held problem by problem. The plain Viterbi
 takes dense tables built from the HMMs' edge lists, not from the kernel's
 sparse ones. It walks positions in Python, at a cost that hardly depends
 on the number of rows: so each replay keeps its Viterbi calls' kernel
-outputs, and phase 19 runs the rows of every path's calls up to a padded
+outputs, and phase 21 runs the rows of every path's calls up to a padded
 query length of REPLAY_MAX_L as one batch and those of all longer calls as
 another (each cut where its traceback words would pass
 PLAIN_VITERBI_BYTES), against which each call's kernel output is held row
@@ -146,11 +160,12 @@ and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
 the launches of phase 9, under "pool_path" the launches of the targeted
 -t 4 workers of phase 18 together, under "mesh_path" the launches of
 phase 13 by shard, and under "adversarial_path", "noisy_path",
-"scale_path" and "targeted_scale_path" the launches of phases 15-18 (the
-cuda runs of both genotypers or presets together; the 10^4 and 2,500
-runs' workers together) beside the replays' max_abs_err, held calls and
-times (those of phases 17-18: of their loci run alone, whose launches are
-"replayed_loci_launches"). The last line is
+"scale_path", "targeted_scale_path" and "flags_path" the launches of
+phases 15-19 (the cuda runs of both genotypers, presets or all flag sets
+together; the 10^4 and 2,500 runs' workers together) beside the replays'
+max_abs_err, held calls and times (those of phases 17-18: of their loci
+run alone, whose launches are "replayed_loci_launches"), and under
+"flags_pool_path" the launches of phase 19's -t 2 workers. The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or of trgt_tpu.
 """
 
@@ -850,16 +865,21 @@ LOW_RQ_READS = "reads_low_rq.bam"
 def low_quality_reads(dsdir: str) -> str:
     """reads.bam with every second read's rq rewritten to 0.85 (under 0.9,
     so the targeted preset's impure-read filter labels it)."""
+    return rq_reads(dsdir, LOW_RQ_READS, (0.999, 0.85))
+
+
+def rq_reads(dsdir: str, name: str, cycle) -> str:
+    """reads.bam with read i's rq rewritten to cycle[i % len(cycle)], as
+    `name` in the same folder."""
     from trgt_tpu_torch.io.bam import BamReader
     from trgt_tpu_torch.io.bam_write import BamWriter
-    name = LOW_RQ_READS
     src = BamReader(os.path.join(dsdir, "reads.bam"))
     w = BamWriter(os.path.join(dsdir, name), src.header.text,
                   src.header.references, build_index=True)
     for i, rec in enumerate(src):
         w.write_record(rec.qname, rec.flag, rec.ref_id, rec.pos, rec.mapq,
                        rec.cigar, rec.seq, rec.qual,
-                       [("rq", "f", 0.85 if i % 2 else 0.999)])
+                       [("rq", "f", cycle[i % len(cycle)])])
     w.close()
     return name
 
@@ -1533,17 +1553,32 @@ def bam_records(data: bytes):
     return out
 
 
+# `python -m trgt_tpu_torch` with runner.POOL_MIN_LOCI set first, so that a
+# small catalog runs on the worker pool
+_POOL_CHILD = r"""
+import sys
+from trgt_tpu_torch.engine import runner
+runner.POOL_MIN_LOCI = int(sys.argv[1])
+from trgt_tpu_torch.cli import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
 def genotype_child(dsdir: str, reads: str, preset: str, name: str,
-                   threads: int, extra=(), sampler=None, timeout=600):
+                   threads: int, extra=(), sampler=None, timeout=600,
+                   pool_min_loci=None):
     """`python -m trgt_tpu_torch -vv genotype ... -t N --device cuda` in a
     child process, as a user runs it (`sampler`: a RunSampler told the
-    child's pid), killed after `timeout` seconds. Returns (prefix, wall
+    child's pid), killed after `timeout` seconds; with `pool_min_loci`,
+    runner.POOL_MIN_LOCI is set to it first. Returns (prefix, wall
     seconds, the workers' debug lines (`worker_lines`), and with N > 1
     the parent's `pool_timeline`)."""
     prefix = os.path.join(dsdir, name)
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "trgt_tpu_torch", "-vv", "genotype",
+    entry = ["-m", "trgt_tpu_torch"] if pool_min_loci is None else \
+        ["-c", _POOL_CHILD, str(pool_min_loci)]
+    cmd = [sys.executable, *entry, "-vv", "genotype",
            "--genome", os.path.join(dsdir, "ref.fasta"),
            "--repeats", os.path.join(dsdir, "repeats.bed"),
            "--reads", os.path.join(dsdir, reads), "--preset", preset,
@@ -1820,16 +1855,23 @@ def make_noisy(synth, d: str, n: int = NOISY_LOCI,
     """`hetero_loci(n, seed=seed)` with every allele and the reference
     scaled down to at most NOISY_MAX_TR bases and locus i's reads at error
     rate NOISY_ERROR_RATES[i % 5]."""
-    loci = synth.hetero_loci(n, seed=seed)
+    loci = scaled_loci(synth, n, seed, NOISY_MAX_TR)
     for i, lc in enumerate(loci):
-        over = max(lc.ref_copies, *lc.allele_copies) * len(lc.motif) \
-            / NOISY_MAX_TR
+        lc.error_rate = NOISY_ERROR_RATES[i % len(NOISY_ERROR_RATES)]
+    synth.make_dataset(d, loci, seed=seed)
+
+
+def scaled_loci(synth, n: int, seed: int, max_tr: int):
+    """`hetero_loci(n, seed=seed)` with every allele and the reference
+    scaled down to at most `max_tr` bases."""
+    loci = synth.hetero_loci(n, seed=seed)
+    for lc in loci:
+        over = max(lc.ref_copies, *lc.allele_copies) * len(lc.motif) / max_tr
         if over > 1:
             lc.ref_copies = max(2, int(lc.ref_copies / over))
             lc.allele_copies = tuple(max(2, int(a / over))
                                      for a in lc.allele_copies)
-        lc.error_rate = NOISY_ERROR_RATES[i % len(NOISY_ERROR_RATES)]
-    synth.make_dataset(d, loci, seed=seed)
+    return loci
 
 
 def make_noisy_c4(synth, d: str) -> None:
@@ -2084,15 +2126,16 @@ print(imported, checked, rss())
 """
 
 
-def start_generator(n: int, tag: str, low_rq: bool = False):
-    """Starts making `cached_hetero_dataset(n, seed=SEED, tag=tag)` (and,
-    with `low_rq`, its `low_quality_reads`) in a child process; returns
-    (process, start time)."""
+def start_generator(n: int, tag: str, low_rq: bool = False,
+                    seed: int = SEED, root: str = DATA_ROOT):
+    """Starts making `cached_hetero_dataset(n, seed=seed, tag=tag,
+    root=root)` (and, with `low_rq`, its `low_quality_reads`) in a child
+    process; returns (process, start time)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen(
-        [sys.executable, "-c", _GENERATOR, REPO, DATA_ROOT, str(n),
-         str(SEED), tag, "low_rq" if low_rq else "-"], cwd=REPO, env=env,
+        [sys.executable, "-c", _GENERATOR, REPO, root, str(n),
+         str(seed), tag, "low_rq" if low_rq else "-"], cwd=REPO, env=env,
         stdout=subprocess.PIPE, text=True)
     return proc, time.perf_counter()
 
@@ -2127,8 +2170,10 @@ class RunSampler:
     the device memory of each compute process (`nvidia-smi
     --query-compute-apps`). Sample times are `time.perf_counter()`."""
 
-    def __init__(self, ms: int = 250, apps_every: int = 8):
-        self.ms, self.apps_every = ms, apps_every
+    def __init__(self, ms: int = 250, apps_every: int = 8,
+                 gpu: bool = True):
+        # gpu False: /proc alone, for a run off the card
+        self.ms, self.apps_every, self.gpu = ms, apps_every, gpu
         self.peaks = {}
         # (t, genotype process MiB, largest worker MiB), (t, memory.used
         # MiB, utilization %), (t, the largest compute process's MiB)
@@ -2199,7 +2244,7 @@ class RunSampler:
                 elif now and pid == self.root:
                     parent = int(now[1]) / 1024
             self.rss_series.append((t, parent, worker))
-            if tick % self.apps_every == 0:
+            if self.gpu and tick % self.apps_every == 0:
                 self._compute_apps()
             tick += 1
 
@@ -2225,17 +2270,20 @@ class RunSampler:
         self.proc = subprocess.Popen(
             ["nvidia-smi", "--query-gpu=timestamp,memory.used,"
              "utilization.gpu", "--format=csv,noheader,nounits",
-             f"-lms={self.ms}"], stdout=subprocess.PIPE, text=True)
+             f"-lms={self.ms}"], stdout=subprocess.PIPE, text=True) \
+            if self.gpu else None
+        loops = [self._loop] + ([self._read_smi] if self.gpu else [])
         self.threads = [threading.Thread(target=fn, daemon=True)
-                        for fn in (self._loop, self._read_smi)]
+                        for fn in loops]
         for t in self.threads:
             t.start()
         return self
 
     def __exit__(self, *exc):
         self.done.set()
-        self.proc.terminate()
-        self.proc.wait(timeout=30)
+        if self.proc is not None:
+            self.proc.terminate()
+            self.proc.wait(timeout=30)
         for t in self.threads:
             t.join(timeout=30)
 
@@ -2503,6 +2551,163 @@ def phase_targeted_scale(generator):
     return numbers, [(launches, held)]
 
 
+# phase 19: the bench generator's catalog with its TRs scaled to at most
+# FLAGS_MAX_TR bases (so that the replays' plain versions stay short; the
+# long alleles are phases 7-8's and 17's), under the non-default flags of
+# tests/test_torch_flags.py
+FLAGS_LOCI = N_LOCI
+FLAGS_MAX_TR = 1000
+MIXED_RQ_READS = "reads_mixed_rq.bam"
+# read quality by read index: under 0.5 (dropped at --min-read-quality
+# 0.5), under 0.9 (labelled by the impure-read filter) and HiFi
+MIXED_RQ = (0.3, 0.85, 0.999)
+# name: (preset, reads, flags). Depths of the generator run to 200: over
+# 3 x 2 the read extraction's reservoir walk runs, over 20 the downsample
+# of the spanning reads (BatchPipeline._finish_spans)
+FLAG_SETS = {
+    "max_depth_2": ("wgs", "reads.bam", ("--max-depth", "2")),
+    "max_depth_20": ("wgs", "reads.bam", ("--max-depth", "20")),
+    "aln_scoring_wgs": ("wgs", "reads.bam", ("--aln-scoring", "1,1,1")),
+    "aln_scoring_targeted": ("targeted", LOW_RQ_READS,
+                             ("--aln-scoring", "3,6,2")),
+    "min_flank_id_frac": ("wgs", "reads.bam",
+                          ("--min-flank-id-frac", "0.9")),
+    "min_read_quality": ("wgs", MIXED_RQ_READS,
+                         ("--min-read-quality", "0.5")),
+    "output_flank_len": ("wgs", "reads.bam", ("--output-flank-len", "10")),
+}
+# warnings of the read extraction that show which path a locus took
+FLAG_WARNINGS = ("Reservoir sampling reads", "Quality filtered")
+FLAGS_POOL_THREADS = 2
+
+
+class WarningCount:
+    """Counts, while active, the warnings of the "trgt" logger that hold
+    each of FLAG_WARNINGS, and the spanning-read lists that
+    `_finish_spans` downsampled."""
+
+    def __enter__(self):
+        import logging
+        from trgt_tpu_torch.engine import pipeline
+        self.counts = collections.Counter()
+        counts = self.counts
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                for key in FLAG_WARNINGS:
+                    if key in record.getMessage():
+                        counts[key] += 1
+
+        self.handler = Handler(logging.WARNING)
+        logging.getLogger("trgt").addHandler(self.handler)
+        self.downsample = Capture(pipeline, "uniform_downsample").__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger("trgt").removeHandler(self.handler)
+        self.downsample.__exit__(*exc)
+        self.counts["downsampled"] = len(self.downsample.calls)
+        self.downsample.calls.clear()
+
+
+def phase_flags():
+    """The non-default flags on the card: each flag set of FLAG_SETS under
+    --device cuda (`capture_cuda`, every kernel call replayed against its
+    plain version) and --device host, identical records; then the catalog
+    as a CRAM written by the port's CramWriter through the -t 2 worker pool
+    under --device cuda: the VCF records of the BAM run under cuda, and
+    the records of the CRAM under --device host. Returns ([(launches,
+    replay numbers)] of the flag sets, the pool workers' launches)."""
+    from trgt_tpu_torch.utils import synth
+    phase(f"flags: {FLAGS_LOCI} loci of the bench generator (TRs up to "
+          f"{FLAGS_MAX_TR} bases), {len(FLAG_SETS)} non-default flag sets "
+          f"and CRAM through -t {FLAGS_POOL_THREADS}, --device cuda vs host")
+    d = os.path.join(DATA_ROOT, f"flags{FLAGS_LOCI}")
+    os.makedirs(d, exist_ok=True)
+    synth.make_dataset(d, scaled_loci(synth, FLAGS_LOCI, SEED, FLAGS_MAX_TR),
+                       seed=SEED)
+    low_quality_reads(d)
+    rq_reads(d, MIXED_RQ_READS, MIXED_RQ)
+    runs = []
+    for name, (preset, reads, flags) in FLAG_SETS.items():
+        with WarningCount() as seen:
+            cuda, host, launches, held = cuda_and_host(
+                d, reads, preset, f"flags_{name}", FLAGS_LOCI, ("viterbi",),
+                flags)
+        same = records(cuda) == records(host)
+        print(f"flags {name} ({' '.join(flags)}, --preset {preset}, "
+              f"{reads}): cuda records == host {same}; launches "
+              f"{json.dumps(launches)}; in both runs {json.dumps(seen.counts)}")
+        if not same:
+            raise AssertionError(f"flags {name}: cuda and host records "
+                                 f"differ")
+        runs.append((launches, held))
+        if name == "max_depth_2" and not seen.counts[FLAG_WARNINGS[0]]:
+            raise AssertionError("--max-depth 2: no reservoir walk")
+        if name == "max_depth_20" and not seen.counts["downsampled"]:
+            raise AssertionError("--max-depth 20: no downsample")
+        if name == "min_read_quality" and not seen.counts[FLAG_WARNINGS[1]]:
+            raise AssertionError("--min-read-quality 0.5: no read dropped")
+
+    ids = [re.search(r"ID=([^;]+)", line)[1]
+           for line in open(os.path.join(d, "repeats.bed"))]
+    bed, bam, cram = write_cram_subset(d, ids)[:3]
+    bam_cuda = run_genotype(d, bam, DEVICE, "wgs", bed, "flags_bam_cuda",
+                            FLAGS_LOCI)
+    cram_host = run_genotype(d, cram, "host", "wgs", bed, "flags_cram_host",
+                             FLAGS_LOCI)
+    # the CRAM holds every locus's reads, so the whole catalog runs
+    pool, wall, workers, _ = genotype_child(
+        d, cram, "wgs", "flags_cram_pool", FLAGS_POOL_THREADS,
+        pool_min_loci=0)
+    launched = pool_launches(workers, "flags CRAM pool")
+    got = records(pool)
+    same_bam_run = got[0] == records(bam_cuda)[0]
+    same_host = got == records(cram_host)
+    print(f"flags CRAM -t {FLAGS_POOL_THREADS} --device cuda (the worker "
+          f"pool, {wall:.3f} s): VCF records == the BAM cuda run's "
+          f"{same_bam_run}; records == the CRAM host run's {same_host}; "
+          f"launches {json.dumps(dict(launched))}")
+    missing = [k for k in PATH_KERNELS["wgs"] if not launched[k]]
+    if not same_bam_run or not same_host or missing:
+        raise AssertionError(f"CRAM through the pool differs from the BAM "
+                             f"run or from its host run, or {missing} never "
+                             f"launched")
+    return runs, dict(launched)
+
+
+def phase_bench():
+    """`bench_torch.py --cell bench96-wgs --repeats 1` as a child process,
+    as a user runs it: its result line (the last) is correct and the wgs
+    path's kernels launched. Returns that line."""
+    phase("bench: bench_torch.py --cell bench96-wgs --repeats 1")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench_torch.py"), "--cell",
+         "bench96-wgs", "--repeats", "1"], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_torch.py exited {proc.returncode}:\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches = {k: result["kernels"].get(k, {}).get("launches", 0)
+                for k in PATH_KERNELS["wgs"]}
+    print(f"bench96-wgs: correct {result['correct']} by "
+          f"{result['correct_by']}, loci/s {json.dumps(result['loci_per_s'])},"
+          f" setup {result['setup_s']:.3f} s, host anchor "
+          f"{result['host_loci_per_s']:.3f} loci/s, busy share "
+          f"{result['busy_share']}, profiled busy share "
+          f"{(result['profile'] or {}).get('busy_share')}, launches "
+          f"{json.dumps(launches)}, card {json.dumps(result['card'])}")
+    if result.get("kind") != "result" or not result["correct"] or \
+            result["partial"] or result["platform"] != "gpu" or \
+            not all(launches.values()):
+        raise AssertionError("bench_torch.py: the result is not correct, "
+                             "partial, off the card, or a kernel of the wgs "
+                             "path never launched")
+    return result
+
+
 # the Viterbi calls of every replayed path, their rows held against the
 # plain version after the last phase (`hold_viterbi_rows`): {"path", "calls":
 # [(kernel output on the host, hmms, queries)], "entry": the path's replay
@@ -2634,7 +2839,9 @@ def run_phases(t_start, generators) -> int:
     scale_launched, scale_runs = run("17 scale", phase_scale, generators[0])
     targeted_scale, targeted_runs = run(
         "18 targeted at scale", phase_targeted_scale, generators[1])
-    run("19 viterbi rows", hold_viterbi_rows)
+    flags, flags_pool = run("19 flags", phase_flags)
+    run("20 bench", phase_bench)
+    run("21 viterbi rows", hold_viterbi_rows)
 
     loci_paths = {"scale_path": (scale_launched, path_entry(scale_runs)),
                   "targeted_scale_path": (targeted_scale["launches"],
@@ -2659,6 +2866,8 @@ def run_phases(t_start, generators) -> int:
         entry["mesh_path"] = {"launches_by_shard": mesh_launches[name]}
         entry["adversarial_path"] = path_entry(adversarial)[name]
         entry["noisy_path"] = path_entry(noisy)[name]
+        entry["flags_path"] = path_entry(flags)[name]
+        entry["flags_pool_path"] = {"launches": flags_pool[name]}
         for key, (launched, numbers) in loci_paths.items():
             entry[key] = dict(numbers[name])
             entry[key]["replayed_loci_launches"] = entry[key]["launches"]

@@ -115,11 +115,12 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_profile.py")
+    yield os.path.join(REPO, "bench_torch.py")
 
 
 def test_no_source_imports_jax():
-    """No module of trgt_tpu_torch/**.py, chip_smoke.py nor chip_profile.py
-    imports `jax`,
+    """No module of trgt_tpu_torch/**.py, chip_smoke.py, chip_profile.py
+    nor bench_torch.py imports `jax`,
     `trgt_tpu` or `trgt_tpu.*`, not even lazily inside a function."""
     n_files = 0
     for path in _port_sources():
