@@ -79,6 +79,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
                   and a 3-way --shard-index/--shard-count split of the
                   bench catalog under cuda whose records together equal
                   phase 7's host run
+ 22. cluster      (run after 14) two child processes `genotype --device
+                  cuda --preset wgs --shard-count 2 --shard-index k` of
+                  the bench catalog, joined through TRGT_COORDINATOR_
+                  ADDRESS on a free local port into one gloo group (both
+                  on cuda:0): each joined a group of 2 as rank k and
+                  launched flank, Viterbi and e2e; the riffled VCF records
+                  and the sorted BAM records == phase 7's cuda and host
+                  runs. Then the card count and the mesh that a default
+                  run in this process installed (none on one card), and,
+                  over several cards, a run under the default mesh
+                  (records == phase 7's, every card launched the path's
+                  kernels)
  15. adversarial  the catalog of tests/test_adversarial_e2e.py (14 loci:
                   homopolymers, stutter, indels at the TR boundaries)
                   under the size and cluster genotypers: cuda == host ==
@@ -159,7 +171,8 @@ each phase's seconds and the total. The second-to-last line is
 and, under "wgs_path", the same numbers of the wgs path, under "cram_path"
 the launches of phase 9, under "pool_path" the launches of the targeted
 -t 4 workers of phase 18 together, under "mesh_path" the launches of
-phase 13 by shard, and under "adversarial_path", "noisy_path",
+phase 13 by shard, under "cluster_path" the launches of phase 22 by
+rank, and under "adversarial_path", "noisy_path",
 "scale_path", "targeted_scale_path" and "flags_path" the launches of
 phases 15-19 (the cuda runs of both genotypers, presets or all flag sets
 together; the 10^4 and 2,500 runs' workers together) beside the replays'
@@ -178,6 +191,7 @@ import json
 import os
 import random
 import re
+import socket
 import struct
 import subprocess
 import sys
@@ -1805,6 +1819,197 @@ def phase_ploidy_shards(dsdir: str):
                              "unsharded run")
 
 
+# phase 22: a shard process of the catalog cluster. It reads the group's
+# rank and size while the group is up (just before the runner leaves it) and
+# prints them, its kernel counters and its peak memory on cuda:0 on its last
+# line.
+_CLUSTER_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from trgt_tpu_torch import mesh
+from trgt_tpu_torch.cli import main
+from trgt_tpu_torch.kernels import telemetry
+group = []
+leave = mesh.shutdown_distributed
+
+def shutdown():
+    group.append([dist.get_rank(), dist.get_world_size()])
+    leave()
+
+mesh.shutdown_distributed = shutdown
+telemetry.clear()
+rc = main(sys.argv[1:])
+print(json.dumps({"rc": rc, "group": group, "kernels": telemetry.snapshot(),
+                  "peak_mib_cuda0": torch.cuda.max_memory_allocated(0)
+                  / 2**20 if torch.cuda.is_available() else 0.0,
+                  "initialized_after": dist.is_initialized()}))
+sys.exit(rc)
+"""
+CLUSTER_RANKS = 2
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(child: str, argv_of, n: int, env: dict, workdir: str,
+              timeout: float = 300.0, attempts: int = 3):
+    """n processes `python -c child *argv_of(k)` joined through
+    TRGT_COORDINATOR_ADDRESS on a free port of this host; [(returncode,
+    stdout, stderr)] of each. A rank that fails ends the others. The port is
+    free when it is probed, but another process may take it before rank 0
+    listens on it: then all ranks run again on another port."""
+    for attempt in range(attempts):
+        run_env = dict(env, TRGT_COORDINATOR_ADDRESS=f"127.0.0.1:"
+                                                     f"{free_port()}")
+        logs = [(open(os.path.join(workdir, f"rank{k}.out"), "w+"),
+                 open(os.path.join(workdir, f"rank{k}.err"), "w+"))
+                for k in range(n)]
+        procs = [subprocess.Popen([sys.executable, "-c", child, *argv_of(k)],
+                                  cwd=REPO, env=run_env, stdout=out,
+                                  stderr=err) for k, (out, err) in
+                 enumerate(logs)]
+        deadline = time.monotonic() + timeout
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(
+                        p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        results = []
+        for p, files in zip(procs, logs):
+            texts = []
+            for fh in files:
+                fh.seek(0)
+                texts.append(fh.read())
+                fh.close()
+            results.append((p.returncode, *texts))
+        if not any("EADDRINUSE" in err for _, _, err in results):
+            break
+    return results
+
+
+def cluster_ranks(dsdir: str):
+    """CLUSTER_RANKS `genotype --device cuda --preset wgs --shard-count 2
+    --shard-index k` child processes joined through TRGT_COORDINATOR_ADDRESS
+    (a free port of this host); returns (each rank's last line, its join
+    log line)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("TRGT_TPU_MESH", None)
+    results = run_ranks(_CLUSTER_CHILD, lambda k: [
+        "-v", "genotype",
+        "--genome", os.path.join(dsdir, "ref.fasta"),
+        "--repeats", os.path.join(dsdir, "repeats.bed"),
+        "--reads", os.path.join(dsdir, "reads.bam"), "--preset", "wgs",
+        "--output-prefix", os.path.join(dsdir, f"smoke_cluster{k}"),
+        "--device", DEVICE, "--shard-count", str(CLUSTER_RANKS),
+        "--shard-index", str(k)], CLUSTER_RANKS, env, dsdir)
+    ranks, joins = [], []
+    for k, (rc, out, err) in enumerate(results):
+        if rc != 0:
+            raise RuntimeError(f"cluster rank {k} exited {rc}:\n"
+                               f"{err[-4000:]}")
+        ranks.append(json.loads(out.strip().splitlines()[-1]))
+        joins.append(next((line.split("] ", 1)[-1]
+                           for line in err.splitlines()
+                           if "torch.distributed initialized" in line), None))
+    return ranks, joins
+
+
+def phase_cluster(dsdir: str):
+    """The catalog cluster and the default mesh: two shard processes of
+    bench96 wgs on the card joined through TRGT_COORDINATOR_ADDRESS (each in
+    a group of 2, with memory on cuda:0, flank, Viterbi and e2e launched,
+    the riffled VCF records and the sorted BAM records == phase 7's cuda and
+    host runs); the mesh that a default run in this process installed (none
+    on one card), and over several cards a run under the default mesh (==
+    phase 7's, every card launched). Returns {kernel: launches by rank}."""
+    import torch
+    from trgt_tpu_torch import mesh
+    from trgt_tpu_torch.kernels import telemetry
+    phase(f"cluster: {CLUSTER_RANKS} shard processes of bench{N_LOCI} wgs "
+          f"joined through TRGT_COORDINATOR_ADDRESS, the default mesh")
+    t0 = time.perf_counter()
+    ranks, joins = cluster_ranks(dsdir)
+    wall = time.perf_counter() - t0
+    by_rank = {name: [launch_counts(r["kernels"])[name] for r in ranks]
+               for name in ("flank", "viterbi", "editdist", "e2e")}
+    for k, (r, join) in enumerate(zip(ranks, joins)):
+        print(f"rank {k}: group (rank, size) {r['group']}, log "
+              f"{join!r}, peak on cuda:0 {r['peak_mib_cuda0']:.1f} MiB, "
+              f"launches {json.dumps(launch_counts(r['kernels']))}")
+    print(f"{CLUSTER_RANKS} ranks in {wall:.3f} s (child start-up and "
+          f"rendezvous included)")
+    for k, r in enumerate(ranks):
+        if r["group"] != [[k, CLUSTER_RANKS]] or r["initialized_after"] \
+                or (DEVICE == "cuda" and not r["peak_mib_cuda0"]):
+            raise AssertionError(f"rank {k} did not join a group of "
+                                 f"{CLUSTER_RANKS} as rank {k} with its "
+                                 f"tensors on cuda:0, or did not leave it")
+        missing = [name for name in PATH_KERNELS["wgs"]
+                   if not launch_counts(r["kernels"])[name]]
+        if missing:
+            raise AssertionError(f"rank {k} never launched {missing}")
+    shards = [records(os.path.join(dsdir, f"smoke_cluster{k}"))
+              for k in range(CLUSTER_RANKS)]
+    lines = [vcf.splitlines()[1:] for vcf, _ in shards]
+    riffled = [lines[i % CLUSTER_RANKS][i // CLUSTER_RANKS]
+               for i in range(sum(map(len, lines)))]
+    recs = sorted(rec for _, bam in shards for rec in bam_records(bam))
+    for device in (DEVICE, "host"):
+        vcf, bam = records(os.path.join(dsdir, f"smoke_wgs_{device}"))
+        same = riffled == vcf.splitlines()[1:] and \
+            recs == sorted(bam_records(bam))
+        print(f"riffled VCF records ({len(riffled)}) and sorted BAM records "
+              f"({len(recs)}) == phase 7's {device} run: {same}")
+        if not same:
+            raise AssertionError(f"the cluster's records differ from phase "
+                                 f"7's {device} run")
+
+    want = records(os.path.join(dsdir, f"smoke_wgs_{DEVICE}"))
+    mesh.disable_mesh()
+    mesh.auto_enable(DEVICE)
+    installed = mesh.current_mesh()
+    n_cards = torch.cuda.device_count()
+    print(f"torch.cuda.device_count() {n_cards}; the mesh that a default "
+          f"run installs: {installed}")
+    if n_cards == 1:
+        if installed is not None:
+            raise AssertionError("a mesh over one card")
+        print("a run under the default mesh over several cards: not run "
+              "(one card visible)")
+        return by_rank
+    telemetry.clear()
+    try:
+        prefix = run_genotype(dsdir, "reads.bam", DEVICE, "wgs",
+                              name="smoke_wgs_default_mesh")
+        shards = telemetry.by_shard()
+        installed = mesh.current_mesh()
+    finally:
+        mesh.disable_mesh()
+    cards = mesh.visible_devices(DEVICE)
+    per_card = [launch_counts(shards.get(k, {})) for k in range(n_cards)]
+    same = records(prefix) == want
+    print(f"the default mesh {installed}: records == phase 7's {same}; "
+          f"launches by card {json.dumps(per_card)}")
+    if not same or installed != cards or not all(
+            c[k] for c in per_card for k in PATH_KERNELS["wgs"]):
+        raise AssertionError("the default mesh run differs from phase 7's, "
+                             "or a card launched no kernel of the path")
+    return by_rank
+
+
 # The stress catalogs of phases 15-17, each made from a seed by a synth
 # module that is passed in: the port's here, `trgt_tpu.utils.synth` in
 # tests/test_torch_stress.py, which makes the pins below with trgt_tpu.
@@ -2834,6 +3039,7 @@ def run_phases(t_start, generators) -> int:
     run("12 worker pool", phase_pool)
     mesh_launches = run("13 mesh", phase_mesh, dsdir)
     run("14 karyotype and shards", phase_ploidy_shards, dsdir)
+    cluster = run("22 cluster", phase_cluster, dsdir)
     adversarial = run("15 adversarial", phase_adversarial)
     noisy = run("16 noisy", phase_noisy)
     scale_launched, scale_runs = run("17 scale", phase_scale, generators[0])
@@ -2864,6 +3070,7 @@ def run_phases(t_start, generators) -> int:
         entry["cram_path"] = {"launches": cram_launches[name]}
         entry["pool_path"] = {"launches": targeted_scale["launches"][name]}
         entry["mesh_path"] = {"launches_by_shard": mesh_launches[name]}
+        entry["cluster_path"] = {"launches_by_rank": cluster[name]}
         entry["adversarial_path"] = path_entry(adversarial)[name]
         entry["noisy_path"] = path_entry(noisy)[name]
         entry["flags_path"] = path_entry(flags)[name]

@@ -2,8 +2,9 @@
 their problems over a list of devices and give back exactly what they
 give without the mesh (the cases of tests/test_sharding.py:39-115, plus
 e2e), the production `genotype` over the mesh equals the host run
-(`engine/sharding.py dryrun`), and the TRGT_TPU_MESH overrides. One CPU
-or one card holds the split with a repeated device."""
+(`engine/sharding.py dryrun`), and the default mesh and the TRGT_TPU_MESH
+overrides, as trgt_tpu makes them. One CPU or one card holds the split
+with a repeated device."""
 
 import random
 
@@ -140,11 +141,21 @@ def test_dryrun_eight_cpu():
 def test_overrides(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cuda = [torch.device("cuda", i) for i in range(4)]
-    # unset: no mesh, even over four cards, and a caller's mesh kept
-    assert mesh.auto_enable("cuda") is None
+    # unset: a mesh over every card when there are several, as trgt_tpu
+    # makes one; over one device none, and a caller's mesh kept
+    assert mesh.auto_enable("cuda") == cuda and mesh.batch_multiple() == 4
+    mesh.disable_mesh()
     assert mesh.auto_enable("cpu") is None
     mesh.set_mesh([CPU] * 8)
     assert mesh.auto_enable("cpu") == [CPU] * 8
+    # a caller's mesh stays over one card or four; one of another type goes
+    for n in (1, 4):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+        mesh.set_mesh([cuda[0]] * 2)
+        assert mesh.auto_enable("cuda") == [cuda[0]] * 2
+    assert mesh.auto_enable("cpu") is None and mesh.current_mesh() is None
+    mesh.set_mesh([CPU] * 2)
+    assert mesh.auto_enable("cuda") == cuda
     monkeypatch.setenv("TRGT_TPU_MESH", "0")
     assert mesh.auto_enable("cpu") is None and mesh.current_mesh() is None
     monkeypatch.setenv("TRGT_TPU_MESH", "3")
@@ -161,6 +172,106 @@ def test_overrides(monkeypatch):
         mesh.auto_enable("cpu")
     with pytest.raises(ValueError, match="one device type"):
         mesh.set_mesh([CPU, cuda[0]])
+
+
+def test_pool_workers_take_one_card_each(monkeypatch):
+    """`-t N` workers over four cards with TRGT_TPU_MESH unset: worker w
+    takes card w mod 4, made current, and no mesh. With TRGT_TPU_MESH set,
+    or one card, or on the CPU, the worker keeps its device under
+    `auto_enable`'s mesh."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    current = []
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    mesh.set_mesh([cuda[0]] * 2)
+    want = [cuda[w % 4] for w in range(6)]
+    assert [mesh.pool_device(cuda[0], w) for w in range(6)] == want
+    assert current == want and mesh.current_mesh() is None
+    monkeypatch.setenv("TRGT_TPU_MESH", "2")
+    assert mesh.pool_device(cuda[0], 5) == cuda[0]
+    assert mesh.current_mesh() == cuda[:2]
+    monkeypatch.setenv("TRGT_TPU_MESH", "0")
+    assert mesh.pool_device(cuda[0], 5) == cuda[0]
+    assert mesh.current_mesh() is None
+    monkeypatch.delenv("TRGT_TPU_MESH")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert mesh.pool_device(cuda[0], 3) == cuda[0]
+    assert mesh.pool_device(CPU, 3) == CPU
+    assert mesh.current_mesh() is None and len(current) == 6
+
+
+@pytest.mark.cuda
+def test_cuda_default_mesh_over_several_cards(tmp_path, monkeypatch):
+    """Over several cards, a default `genotype --device cuda` meshes over
+    all of them, every card launches the flank and Viterbi kernels, and the
+    output bytes equal a run on one card (TRGT_TPU_MESH=1)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    from trgt_tpu_torch.cli import main
+    from trgt_tpu_torch.utils.synth import SynthLocus, make_dataset
+    loci = [SynthLocus(f"M{i}", "CAG", 8 + i, (8 + i, 12 + 3 * i))
+            for i in range(8)]
+    fasta, bed, bam = make_dataset(str(tmp_path), loci, depth=16,
+                                   error_rate=0.01)
+
+    def run(name):
+        prefix = str(tmp_path / name)
+        assert main(["genotype", "--genome", fasta, "--repeats", bed,
+                     "--reads", bam, "--output-prefix", prefix,
+                     "--device", "cuda"]) == 0
+        return [open(prefix + ext, "rb").read()
+                for ext in (".vcf.gz", ".spanning.bam")]
+
+    monkeypatch.setenv("TRGT_TPU_MESH", "1")
+    one = run("one_card")
+    assert mesh.current_mesh() is None
+    monkeypatch.delenv("TRGT_TPU_MESH")
+    telemetry.clear()
+    meshed = run("default_mesh")
+    cards = mesh.visible_devices("cuda")
+    assert mesh.current_mesh() == cards
+    shards = telemetry.by_shard()
+    for k in range(len(cards)):
+        for name in ("flank", "viterbi"):
+            assert telemetry.totals(shards[k])[name]["launches"], (k, name)
+    assert meshed == one
+
+
+@pytest.fixture
+def reference_mesh():
+    """trgt_tpu's mesh module (JAX: conftest's eight CPU devices), its mesh
+    cleared before and after."""
+    from trgt_tpu import mesh as ref_mesh
+    ref_mesh.disable_mesh()
+    yield ref_mesh
+    ref_mesh.disable_mesh()
+
+
+@pytest.mark.parametrize("env", [None, "0", "1", "3", "-1", "eight"])
+def test_auto_enable_matches_trgt_tpu(env, reference_mesh, monkeypatch):
+    """Over eight visible devices on both sides, the port's mesh has
+    trgt_tpu's size for every TRGT_TPU_MESH (unset, off, one, three; a
+    negative count clears it, an unparsable one reads as unset)."""
+    import jax
+    assert len(jax.devices()) == 8
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    if env is not None:
+        monkeypatch.setenv("TRGT_TPU_MESH", env)
+    reference_mesh.auto_enable()
+    mesh.auto_enable("cuda")
+    assert mesh.batch_multiple() == reference_mesh.batch_multiple()
+    want = {None: 8, "0": 1, "1": 1, "3": 3, "-1": 1, "eight": 8}[env]
+    assert mesh.batch_multiple() == want
+
+
+def test_auto_enable_over_more_than_visible_raises_as_trgt_tpu(
+        reference_mesh, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    monkeypatch.setenv("TRGT_TPU_MESH", "9")
+    with pytest.raises(ValueError, match="only 8"):
+        reference_mesh.auto_enable()
+    with pytest.raises(ValueError, match="only 8 cuda visible"):
+        mesh.auto_enable("cuda")
 
 
 def test_genotype_run_installs_the_env_mesh(monkeypatch, tmp_path):

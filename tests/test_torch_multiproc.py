@@ -217,3 +217,26 @@ def test_cuda_pool_matches_t1(dataset):
     multi = run(port_main, dataset, "cuda_t2", "--device", "cuda", "-t", "2")
     for ext in OUTPUTS:
         assert multi[ext] == base[ext]
+
+
+@pytest.mark.cuda
+def test_cuda_pool_takes_one_card_per_worker(dataset, caplog, capfd):
+    """Over several cards, `-t N` (N = the card count) puts worker w on card
+    w and makes no mesh; the output bytes equal `-t 1`'s."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    import logging
+    import re
+    caplog.set_level(logging.DEBUG, logger="trgt")
+    base = run(port_main, dataset, "cuda_t1", "--device", "cuda")
+    capfd.readouterr()
+    multi = run(port_main, dataset, f"cuda_cards_t{n}", "--device", "cuda",
+                "-t", str(n))
+    err = capfd.readouterr().err
+    cards = dict(re.findall(r"\[worker (\d+)\] DEBUG worker ready .* "
+                            r"device (cuda:\d+)", err))
+    assert cards == {str(w): f"cuda:{w}" for w in range(n)}, err[-3000:]
+    assert "Device mesh enabled" not in err
+    for ext in OUTPUTS:
+        assert multi[ext] == base[ext]

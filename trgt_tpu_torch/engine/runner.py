@@ -4,12 +4,15 @@
 Stream loci → `BatchPipeline` → VCF + spanning BAM through the port's
 own readers and writers, with a writer thread. `--device` picks CUDA
 kernels, their plain PyTorch versions on the CPU, or the host twins
-(device.py); a device run installs the device mesh that TRGT_TPU_MESH
-asks for (`mesh.auto_enable`; none unless asked).
+(device.py); a device run meshes over every visible card, or as
+TRGT_TPU_MESH says (`mesh.auto_enable`), and a device run of a catalog
+shard first joins the catalog cluster at TRGT_COORDINATOR_ADDRESS, where
+one is set (`mesh.initialize_distributed`).
 
 `-t N` with N > 1 runs N worker processes (engine/worker.py) where the
 catalog gives each POOL_MIN_LOCI loci, each on the requested device with
-a CUDA context of its own; they take catalog chunks as they ask for them,
+a CUDA context of its own (one card each where there are several,
+`mesh.pool_device`); they take catalog chunks as they ask for them,
 and the parent spawns them before it imports torch and merges their
 rendered records in catalog order, so the output bytes equal `-t 1`'s.
 On a smaller catalog, and with TRGT_TPU_PROCS=0, one process runs and
@@ -382,7 +385,6 @@ def run_genotype(args) -> int:
     sample_name = args.sample_name or get_sample_name(args.reads_path,
                                                       bam.header)
     command_line = " ".join(sys.argv)
-    output_flank_len = min(args.flank_len, args.output_flank_len)
 
     def open_writers():
         vcf_writer = VcfWriter(f"{args.output_prefix}.vcf.gz", sample_name,
@@ -417,7 +419,6 @@ def run_genotype(args) -> int:
         log.info("Processed %d loci (%d errors)", n_ok, n_err)
         return n_ok
 
-    vcf_writer, bam_writer = open_writers()
     params = Params(
         min_flank_id_frac=args.min_flank_id_frac,
         min_read_qual=args.min_hifi_read_qual,
@@ -425,9 +426,29 @@ def run_genotype(args) -> int:
         max_depth=args.max_depth,
         aln_scoring=scoring,
     )
+    from .. import mesh
+    joined = device is not None and bool(shard_count)
+    if joined:
+        # the catalog cluster (standalone without a coordinator address)
+        mesh.initialize_distributed(shard_index, shard_count, device.type)
+    try:
+        n_ok, n_err = _run_in_process(args, device, bam, open_writers,
+                                      params, karyotype, genotyper)
+    finally:
+        if joined:
+            mesh.shutdown_distributed()
+    log.info("Processed %d loci (%d errors)", n_ok, n_err)
+    return n_ok
 
+
+def _run_in_process(args, device, bam, open_writers, params, karyotype,
+                    genotyper):
+    """The pipeline in this process on `device` (None: the host twins), its
+    records written on a writer thread; (loci written, catalog errors)."""
     from .. import mesh
     from .pipeline import STAGE_TIMES, _STAGE_LOCK, BatchPipeline, _timed
+    vcf_writer, bam_writer = open_writers()
+    output_flank_len = min(args.flank_len, args.output_flank_len)
     if device is not None:
         mesh.auto_enable(device.type)
     genome = FastaReader(args.genome_path)
@@ -447,9 +468,9 @@ def run_genotype(args) -> int:
                                             args.genome_path))
     loci = iter_loci(args.repeats_path, genome, karyotype, args.flank_len,
                      genotyper, on_error=on_error)
-    if shard_count:
+    if args.shard_count:
         loci = (locus for i, locus in enumerate(loci)
-                if i % shard_count == shard_index)
+                if i % args.shard_count == args.shard_index)
 
     # writer thread: record building + BGZF deflate overlap the next
     # batch's compute; records stay in pipeline order
@@ -504,5 +525,4 @@ def run_genotype(args) -> int:
     vcf_writer.close()
     if bam_writer is not None:
         bam_writer.close()
-    log.info("Processed %d loci (%d errors)", n_ok, n_err)
-    return n_ok
+    return n_ok, n_err

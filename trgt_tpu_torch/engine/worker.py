@@ -14,9 +14,11 @@ granted in ascending order, so each worker's stream indices ascend and
 the parent's k-way merge by index reproduces the `-t 1` bytes exactly.
 
 Each worker runs its own `BatchPipeline` on the requested device (its own
-CUDA context under `--device cuda`) over the loci it was granted and
-ships RENDERED records (VCF line bytes and length-prefixed BAM records,
-made by the same code as the single-process writer) to the parent.
+CUDA context under `--device cuda`; with several cards, card
+`worker_index` modulo their number, `mesh.pool_device`) over the loci it
+was granted and ships RENDERED records (VCF line bytes and length-prefixed
+BAM records, made by the same code as the single-process writer) to the
+parent.
 
 Frame protocol (little-endian), worker stdout:
   b'R'                                 (chunk request)
@@ -94,7 +96,7 @@ def worker_main(spec: dict) -> int:
         aln_scoring=scoring,
     )
     if device is not None:
-        mesh.auto_enable(device.type)    # none unless TRGT_TPU_MESH asks
+        device = mesh.pool_device(device, w)
 
     n_err = 0
 
