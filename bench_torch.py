@@ -249,10 +249,10 @@ class Bench:
     def _inproc(self, argv, device, profiled):
         import torch
         from trgt_tpu_torch.cli import main
-        from trgt_tpu_torch.engine import pipeline
         from trgt_tpu_torch.kernels import e2e, telemetry
-        pipeline.STAGE_TIMES.clear()
-        pipeline.STAGE_COUNTS.clear()
+        from trgt_tpu_torch.utils import recorder
+        recorder.STAGE_TIMES.clear()
+        recorder.STAGE_COUNTS.clear()
         telemetry.clear()
         e2e.routed.clear()
         ctx = contextlib.nullcontext()
@@ -269,7 +269,7 @@ class Bench:
         if rc != 0:
             raise RuntimeError(f"genotype {' '.join(argv[-7:])} exited {rc}")
         out = {"window": (t0, t1), "wall_s": t1 - t0,
-               "stages": dict(pipeline.STAGE_TIMES),
+               "stages": dict(recorder.STAGE_TIMES),
                "kernels": telemetry.snapshot(), "routed": dict(e2e.routed),
                "setup_s": None, "profile": None}
         if prof is not None:

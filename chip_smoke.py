@@ -771,10 +771,10 @@ def run_genotype(dsdir: str, reads: str, device: str, preset: str,
                  repeats: str = "repeats.bed", name: str = "",
                  n_loci: int = N_LOCI, extra=()):
     from trgt_tpu_torch.cli import main
-    from trgt_tpu_torch.engine import pipeline
     from trgt_tpu_torch.kernels import e2e
+    from trgt_tpu_torch.utils import recorder
     prefix = os.path.join(dsdir, name or f"smoke_{preset}_{device}")
-    pipeline.STAGE_TIMES.clear()
+    recorder.STAGE_TIMES.clear()
     e2e.routed.clear()
     t0 = time.perf_counter()
     rc = main(["genotype", "--genome", os.path.join(dsdir, "ref.fasta"),
@@ -788,7 +788,7 @@ def run_genotype(dsdir: str, reads: str, device: str, preset: str,
     if rc != 0:
         raise RuntimeError(f"genotype --preset {preset} --device {device} "
                            f"exited {rc}")
-    stages = {k: round(v, 3) for k, v in pipeline.STAGE_TIMES.items()}
+    stages = {k: round(v, 3) for k, v in recorder.STAGE_TIMES.items()}
     print(f"genotype --preset {preset} --device {device} --reads {reads}: "
           f"{n_loci} loci in {elapsed:.3f} s = {n_loci / elapsed:.3f} "
           f"loci/s; stages (s) {json.dumps(stages)}", flush=True)

@@ -21,12 +21,9 @@ kernel for a GPU and its plain PyTorch version for the CPU. There is no
 race between the two, no latch, and nothing catches a failing kernel.
 """
 
-import contextlib
 import logging
 import math
 import threading
-import time
-from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
@@ -51,6 +48,7 @@ from ..kernels.editdist import MAX_OPS, edit_distances_batch
 from ..kernels.semiglobal import flank_align_batch_multi
 from ..kernels.viterbi import viterbi_batch_multi
 from ..utils import Genotyper, Ploidy
+from ..utils.recorder import count, timed
 from .workflow import (Allele, LocusResult, Params, cached_hmm,
                        extract_and_clip_reads, get_meth, uniform_downsample)
 
@@ -58,28 +56,6 @@ log = logging.getLogger("trgt")
 
 MIN_RQ_FOR_PURITY = 0.9
 PURITY_CUTOFF = 0.9
-
-# cumulative wall-clock per pipeline stage (seconds); `extract` runs in
-# the prefetch thread and `write` in the writer thread, both overlapping
-# the other stages, so the stage times sum to MORE than end-to-end wall
-# time. The lock makes the += safe across those threads.
-STAGE_TIMES: Counter = Counter()
-# reads the impure-read filter (targeted preset) labelled with the Viterbi
-# path ("impure_filter_labelled") and dropped ("impure_filter_dropped"),
-# summed over the calls of a process like STAGE_TIMES
-STAGE_COUNTS: Counter = Counter()
-_STAGE_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _timed(stage: str):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        with _STAGE_LOCK:
-            STAGE_TIMES[stage] += dt
 
 
 class _LocusState:
@@ -146,14 +122,20 @@ class BatchPipeline:
             for batch in batches():
                 fut = prefetch.submit(self._extract_batch, batch, bam)
                 if prev is not None:
-                    yield from self._finish_batch(prev.result())
+                    yield from self._finish_batch(self._wait(prev))
                 prev = fut
             if prev is not None:
-                yield from self._finish_batch(prev.result())
+                yield from self._finish_batch(self._wait(prev))
+
+    @staticmethod
+    def _wait(fut):
+        """The prefetched batch, the wait for it timed."""
+        with timed("extract_wait"):
+            return fut.result()
 
     # ---- per-batch stages ----
     def _extract_batch(self, loci, bam):
-        with _timed("extract"):
+        with timed("extract"):
             return self._extract_batch_inner(loci, bam)
 
     def _extract_batch_inner(self, loci, bam):
@@ -182,22 +164,23 @@ class BatchPipeline:
         return states
 
     def _finish_batch(self, states):
-        with _timed("spans"):
+        with timed("spans"):
             self._stage_spans(states)
-        with _timed("impure_filter"):
+        with timed("impure_filter"):
             self._stage_impure_filter(states)
-        with _timed("genotype"):
+        with timed("genotype"):
             self._stage_genotype(states)
-        with _timed("annotate"):
+        with timed("annotate"):
             self._stage_annotate(states)
         if self.device is not None and self.device.type == "cuda":
             # every batch pads to new shapes, and the caching allocator
             # keeps the blocks of each: over 10^5 loci a worker's reserve
             # grew to 1.1-1.7 GiB against 0.12-0.19 GiB ever in use at once
             # (PERF.md, PR 10). The batch's tensors are gone by now.
-            torch.cuda.empty_cache()
+            with timed("release"):
+                torch.cuda.empty_cache()
 
-        with _timed("assemble"):
+        with timed("assemble"):
             for st in states:
                 if st.result is None:
                     st.result = self._assemble(st)
@@ -369,8 +352,7 @@ class BatchPipeline:
                 seq = replace_invalid_bases(seq, "ATCG")
                 requests.append((st, ri, hmm, list(motifs), seq))
         purities: Dict[Tuple[int, int], float] = {}
-        with _STAGE_LOCK:
-            STAGE_COUNTS["impure_filter_labelled"] += len(requests)
+        count("impure_filter_labelled", len(requests))
         if requests:
             paths = self._viterbi([r[2] for r in requests],
                                   [r[4] for r in requests])
@@ -399,8 +381,7 @@ class BatchPipeline:
             if num_filtered:
                 log.warning("%s: Filtered out %d impure reads",
                             st.locus.id, num_filtered)
-                with _STAGE_LOCK:
-                    STAGE_COUNTS["impure_filter_dropped"] += num_filtered
+                count("impure_filter_dropped", num_filtered)
             st.reads = [r for r, _ in kept]
             st.spans = [s for _, s in kept]
 

@@ -40,7 +40,7 @@ from ..io.catalog import iter_loci, open_catalog
 from ..io.fasta import FastaReader
 from ..io.vcf_write import VcfWriter
 from ..reads import clip_bases
-from ..utils import Genotyper, Karyotype, TrgtScoring
+from ..utils import Genotyper, Karyotype, TrgtScoring, recorder
 from .workflow import Params
 
 log = logging.getLogger("trgt")
@@ -224,6 +224,7 @@ class WorkerPool:
         # interleave, so without buffering a worker would stall on a full
         # pipe whenever a sibling lags; grants never wait on the merge
         self.queues = [queue.Queue(maxsize=256) for _ in range(nproc)]
+        recorder.WORKER_TABLES.clear()
         self.t_spawn = time.time()
         try:
             for wk in range(nproc):
@@ -250,8 +251,9 @@ class WorkerPool:
             pass   # the worker ended its stream; its E frame decides
 
     def _read_frame(self, i):
-        """One L or E frame of worker i, answering R frames on the way;
-        None at the end of its stream."""
+        """One L or E frame of worker i, answering R frames on the way
+        and keeping its S frame in `recorder.WORKER_TABLES`; None at the
+        end of its stream."""
         fh = self.procs[i].stdout
         while True:
             tag = _read_exact(fh, 1)
@@ -261,6 +263,10 @@ class WorkerPool:
                     f"(rc={self.procs[i].wait()})")
             if tag == b"R":
                 self._grant_chunk(i)
+                continue
+            if tag == b"S":
+                (size,) = struct.unpack("<Q", _read_exact(fh, 8))
+                recorder.WORKER_TABLES[i] = json.loads(_read_exact(fh, size))
                 continue
             if tag == b"E":
                 self.stats[i] = struct.unpack("<QQ", _read_exact(fh, 16))
@@ -305,12 +311,14 @@ class WorkerPool:
                 frame = self._next_frame(i)
                 if frame is not None:
                     heapq.heappush(heap, (frame[0], i, frame[1], frame[2]))
+            write_s = recorder.STAGE_TIMES["merge.write"]
             while heap:
                 _, i, vcf, recs = heapq.heappop(heap)
-                vcf_writer.write_bytes(vcf)
-                if bam_writer is not None:
-                    for rec, rid, pos, ref_end in recs:
-                        bam_writer.write_encoded(rec, rid, pos, ref_end)
+                with recorder.timed("merge.write"):
+                    vcf_writer.write_bytes(vcf)
+                    if bam_writer is not None:
+                        for rec, rid, pos, ref_end in recs:
+                            bam_writer.write_encoded(rec, rid, pos, ref_end)
                 frame = self._next_frame(i)
                 if frame is not None:
                     heapq.heappush(heap, (frame[0], i, frame[1], frame[2]))
@@ -334,9 +342,10 @@ class WorkerPool:
                             "end-of-stream; outputs are complete", i, rc)
         # where a run's wall goes beside the workers' own ready and done
         log.debug("worker pool: %d workers spawned at %.3f (epoch); the last "
-                  "end-of-stream %.3f s and the last exit %.3f s after",
-                  len(self.procs), self.t_spawn, t_end - self.t_spawn,
-                  time.time() - self.t_spawn)
+                  "end-of-stream %.3f s and the last exit %.3f s after; "
+                  "merge.write %.3f s", len(self.procs), self.t_spawn,
+                  t_end - self.t_spawn, time.time() - self.t_spawn,
+                  recorder.STAGE_TIMES["merge.write"] - write_s)
         n_ok = sum(s[0] for s in self.stats if s)
         # every worker parses the whole catalog, so each counts every bad
         # catalog line: max() recovers the -t 1 count
@@ -446,7 +455,7 @@ def _run_in_process(args, device, bam, open_writers, params, karyotype,
     """The pipeline in this process on `device` (None: the host twins), its
     records written on a writer thread; (loci written, catalog errors)."""
     from .. import mesh
-    from .pipeline import STAGE_TIMES, _STAGE_LOCK, BatchPipeline, _timed
+    from .pipeline import BatchPipeline
     vcf_writer, bam_writer = open_writers()
     output_flank_len = min(args.flank_len, args.output_flank_len)
     if device is not None:
@@ -485,13 +494,12 @@ def _run_in_process(args, device, bam, open_writers, params, karyotype,
             w_locus, w_results = item
             try:
                 t_cpu = time.thread_time()
-                with _timed("write"):
+                with recorder.timed("write"):
                     vcf_writer.write(w_locus, w_results)
                     if bam_writer is not None:
                         write_spanning_reads(bam_writer, w_locus, w_results,
                                              output_flank_len)
-                with _STAGE_LOCK:
-                    STAGE_TIMES["write_cpu"] += time.thread_time() - t_cpu
+                recorder.add_time("write_cpu", time.thread_time() - t_cpu)
             except Exception as e:   # surfaced on the main thread
                 writer_error.append(e)
                 return

@@ -26,6 +26,8 @@ Frame protocol (little-endian), worker stdout:
        vcf bytes
        n_bam x [ u32 rec_len  i32 ref_id  i64 pos  i64 ref_end
                  rec bytes ]
+  b'S' u64 json_len  json bytes        (span table, utils/recorder.py
+                                        `table`; only at DEBUG)
   b'E' u64 n_ok  u64 n_err             (end of stream, stats)
 Parent replies on worker stdin:
   i64 start  i64 count                 (count <= 0: no more work)
@@ -72,8 +74,8 @@ def worker_main(spec: dict) -> int:
     from ..io.fasta import FastaReader
     from ..io.vcf_write import VcfWriter
     from ..kernels import e2e, telemetry
-    from ..utils import Genotyper, Karyotype, TrgtScoring
-    from .pipeline import STAGE_COUNTS, STAGE_TIMES, BatchPipeline
+    from ..utils import Genotyper, Karyotype, TrgtScoring, recorder
+    from .pipeline import BatchPipeline
     from .runner import iter_spanning_records, open_alignments
     from .workflow import Params
 
@@ -128,7 +130,8 @@ def worker_main(spec: dict) -> int:
             out.flush()
 
     def read_chunk():
-        hdr = stdin.read(16)
+        with recorder.timed("grant_wait"):
+            hdr = stdin.read(16)
         if len(hdr) < 16:
             return None
         start, count = struct.unpack("<qq", hdr)
@@ -173,37 +176,56 @@ def worker_main(spec: dict) -> int:
     log.debug("worker ready %.3f s after spawn, device %s", ready, device)
     n_ok = 0
     for locus, results in pipeline.process(granted(), bam):
-        j = idxq.popleft()
-        vcf_line = VcfWriter.render(locus, results).encode("utf-8")
-        recs = []
-        if write_bam:
-            # bytes() copies: the native encoder yields memoryviews into a
-            # scratch buffer that the next record reuses
-            recs = [(bytes(rec), rid, pos, ref_end)
-                    for rec, rid, pos, ref_end in iter_spanning_records(
-                        tid_of, locus, results, output_flank_len)]
-        with out_lock:
-            out.write(b"L" + struct.pack("<QII", j, len(vcf_line),
-                                         len(recs)))
-            out.write(vcf_line)
-            for rec, rid, pos, ref_end in recs:
-                out.write(struct.pack("<Iiqq", len(rec), rid, pos, ref_end))
-                out.write(rec)
-            out.flush()
+        with recorder.timed("render"):
+            j = idxq.popleft()
+            vcf_line = VcfWriter.render(locus, results).encode("utf-8")
+            recs = []
+            if write_bam:
+                # bytes() copies: the native encoder yields memoryviews
+                # into a scratch buffer that the next record reuses
+                recs = [(bytes(rec), rid, pos, ref_end)
+                        for rec, rid, pos, ref_end in iter_spanning_records(
+                            tid_of, locus, results, output_flank_len)]
+            with out_lock:
+                out.write(b"L" + struct.pack("<QII", j, len(vcf_line),
+                                             len(recs)))
+                out.write(vcf_line)
+                for rec, rid, pos, ref_end in recs:
+                    out.write(struct.pack("<Iiqq", len(rec), rid, pos,
+                                          ref_end))
+                    out.write(rec)
+                out.flush()
         n_ok += 1
     with out_lock:
+        if recorder.tracing():
+            table = json.dumps(recorder.table(card_index(device))).encode()
+            out.write(b"S" + struct.pack("<Q", len(table)) + table)
         out.write(b"E" + struct.pack("<QQ", n_ok, n_err))
         out.flush()
+    dropped, dropped_nested = recorder.dropped()
     log.debug("worker done %.3f s after spawn: %d loci, stages %s, counts "
               "%s, routed %s, cuda memory %s, kernels %s",
               time.time() - spec["spawned_at"], n_ok,
-              json.dumps({k: round(v, 3) for k, v in STAGE_TIMES.items()}),
-              json.dumps(dict(STAGE_COUNTS)),
+              json.dumps({k: round(v, 3)
+                          for k, v in recorder.STAGE_TIMES.items()}),
+              json.dumps(dict(recorder.STAGE_COUNTS,
+                              timeline_dropped=dropped,
+                              timeline_dropped_nested=dropped_nested)),
               json.dumps({k: round(v, 3) if isinstance(v, float) else v
                           for k, v in e2e.routed.items()}),
               json.dumps(cuda_memory(device)),
               json.dumps(telemetry.snapshot()))
     return 0
+
+
+def card_index(device) -> int:
+    """The index of the worker's card, -1 off a card."""
+    if device is None or device.type != "cuda":
+        return -1
+    if device.index is not None:
+        return device.index
+    import torch
+    return torch.cuda.current_device()
 
 
 def cuda_memory(device) -> dict:

@@ -17,6 +17,7 @@ from typing import List, Optional
 
 from ..io import native as _native
 from ..utils import GenomicRegion
+from ..utils.recorder import count, timed
 from .hifi_read import Cigar, HiFiRead
 
 log = logging.getLogger("trgt")
@@ -87,7 +88,8 @@ def extract_and_clip_native(locus, bam, params,
     for vbeg, vend in chunks:
         cbeg, ubeg = vbeg >> 16, vbeg & 0xFFFF
         cend, uend = vend >> 16, vend & 0xFFFF
-        cached = _chunk_buffer(bam, lib, cbeg, cend, uend)
+        with timed("extract.inflate"):
+            cached = _chunk_buffer(bam, lib, cbeg, cend, uend)
         if cached is None:
             return None
         buf, walk_end = cached
@@ -95,20 +97,25 @@ def extract_and_clip_native(locus, bam, params,
         blob_size = ctypes.c_size_t()
         c_pass = ctypes.c_int64()
         c_filt = ctypes.c_int64()
-        rc = lib.trgt_extract_reads(
-            buf, len(buf), ubeg, walk_end,
-            tid, beg, end,
-            region.start, region.end,
-            region.start - clip_radius, region.end + clip_radius,
-            float(params.min_read_qual),
-            ctypes.byref(blob_p), ctypes.byref(blob_size),
-            ctypes.byref(c_pass), ctypes.byref(c_filt))
-        if rc != 0:
-            return None
-        try:
-            blobs.append(ctypes.string_at(blob_p, blob_size.value))
-        finally:
-            lib.trgt_buf_free(blob_p)
+        with timed("extract.decode"):
+            rc = lib.trgt_extract_reads(
+                buf, len(buf), ubeg, walk_end,
+                tid, beg, end,
+                region.start, region.end,
+                region.start - clip_radius, region.end + clip_radius,
+                float(params.min_read_qual),
+                ctypes.byref(blob_p), ctypes.byref(blob_size),
+                ctypes.byref(c_pass), ctypes.byref(c_filt))
+            if rc != 0:
+                return None
+            try:
+                blobs.append(ctypes.string_at(blob_p, blob_size.value))
+            finally:
+                lib.trgt_buf_free(blob_p)
+        # the mapped primary records of the walk that overlap the locus's
+        # fetch window, passed or filtered (not the records the walk
+        # skipped before the window): a read counts for every locus it covers
+        count("extract_records", c_pass.value + c_filt.value)
         n_pass += c_pass.value
         n_filt += c_filt.value
 
@@ -131,7 +138,8 @@ def extract_and_clip_native(locus, bam, params,
                 kept_idx[j] = i
         keep = kept_idx
 
-    return _deserialize(blob, region, keep)
+    with timed("extract.build"):
+        return _deserialize(blob, region, keep)
 
 
 def _chunk_buffer(bam, lib, cbeg: int, cend: int, uend: int):
