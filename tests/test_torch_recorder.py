@@ -25,7 +25,8 @@ NEW_READERS = ["extract_wait_ms_per_locus", "extract_inflate_ms_per_locus",
                "extract_decode_ms_per_locus", "extract_build_ms_per_locus",
                "extract_records_per_locus", "render_ms_per_locus",
                "release_ms_per_locus", "merge_write_ms_per_locus",
-               "idle_extract_wait_share"]
+               "idle_extract_wait_share", "extract_inflated_mib_per_locus",
+               "extract_block_hit_share"]
 OUTPUTS = (".vcf.gz", ".spanning.bam")
 N_LOCI = 12
 MAIN_SPANS = {"extract_wait", "grant_wait", "render", "spans",

@@ -82,59 +82,6 @@ int trgt_bgzf_decompress(const uint8_t *comp, size_t comp_size,
     return 0;
 }
 
-// Decompress the BGZF blocks of one BAI chunk. `comp` starts at the
-// chunk's first block (coffset of the chunk-begin virtual offset);
-// cend_rel is the chunk-end block's offset relative to comp; u_end the
-// within-block offset of the chunk end. Emits the decompressed bytes
-// and `walk_end` = decompressed offset corresponding to (cend_rel,
-// u_end) — the record walk stops there.
-int trgt_bgzf_decompress_chunk(const uint8_t *comp, size_t comp_size,
-                               size_t cend_rel, uint32_t u_end,
-                               uint8_t **out, size_t *out_size,
-                               size_t *walk_end) {
-    std::vector<uint8_t> result;
-    result.reserve(comp_size * 3);
-    size_t pos = 0;
-    size_t end_block_start = (size_t)-1;
-    while (pos + 28 <= comp_size) {
-        if (pos == cend_rel) {
-            end_block_start = result.size();
-            if (u_end == 0) break;
-        }
-        if (pos > cend_rel && end_block_start != (size_t)-1) break;
-        int64_t bsize = block_size_at(comp + pos, comp_size - pos);
-        if (bsize < 0) return -1;
-        if (pos + bsize > comp_size) break;  // partial tail block
-        uint16_t xlen = comp[pos + 10] | (comp[pos + 11] << 8);
-        const uint8_t *cdata = comp + pos + 12 + xlen;
-        size_t cdata_len = bsize - 12 - xlen - 8;
-        uint32_t isize;
-        memcpy(&isize, comp + pos + bsize - 4, 4);
-        size_t off = result.size();
-        result.resize(off + isize);
-        if (isize > 0) {
-            z_stream zs;
-            memset(&zs, 0, sizeof(zs));
-            if (inflateInit2(&zs, -15) != Z_OK) return -3;
-            zs.next_in = const_cast<uint8_t *>(cdata);
-            zs.avail_in = (uInt)cdata_len;
-            zs.next_out = result.data() + off;
-            zs.avail_out = isize;
-            int ret = inflate(&zs, Z_FINISH);
-            inflateEnd(&zs);
-            if (ret != Z_STREAM_END) return -4;
-        }
-        pos += bsize;
-    }
-    *walk_end = (end_block_start == (size_t)-1)
-                    ? result.size()
-                    : end_block_start + u_end;
-    *out = (uint8_t *)malloc(result.size() ? result.size() : 1);
-    memcpy(*out, result.data(), result.size());
-    *out_size = result.size();
-    return 0;
-}
-
 // Read + decompress an entire BGZF file.
 int trgt_bgzf_read_file(const char *path, uint8_t **out, size_t *out_size) {
     FILE *fp = fopen(path, "rb");
@@ -232,7 +179,8 @@ void trgt_decode_seq(const uint8_t *packed, int32_t l_seq, char *out) {
 // region clip, mirroring the Python twin (trgt_tpu/engine/workflow.py
 // extract_reads + trgt_tpu/reads/{hifi_read,clip}.py; reference logic at
 // src/trgt/workflows/tr.rs:268-361, src/trgt/reads/read.rs:101-141,
-// clip_region.rs:19-190, snp.rs:51-78). One call per BAI chunk;
+// clip_region.rs:19-190, snp.rs:51-78). One call per locus, over the
+// records its block-addressed walk gathered (trgt_reader_extract below);
 // serialized records are deserialized into HiFiRead on the Python side.
 
 namespace {
@@ -1554,6 +1502,257 @@ int trgt_hmm_label(int64_t S, int64_t E, int64_t L,
     *out_len = n;
     free(scores); free(preds); free(valid);
     return 0;
+}
+
+}  // extern "C"
+
+// ---------------- block-addressed BAM reader ----------------
+//
+// A locus's record walk reads the BAM through a cache of inflated BGZF
+// blocks, keyed by the block's file offset and filled on demand. From
+// each BAI chunk's begin virtual offset (io/bam.py `chunks_for` clips it
+// to the linear index's floor) the walk inflates a block only when it
+// reaches it, and it stops at the chunk's end, at another tid, or at the
+// first record at or past the window's end: no block past that point is
+// inflated. A record that crosses blocks is put together from them. The
+// records gathered go through trgt_extract_reads as one buffer, so the
+// per-record logic is the same. The cache is a least-recently-used list
+// bounded in inflated bytes, owned by one reader (one per BamReader, so
+// one per pool worker and per extraction thread); a mutex keeps two
+// threads off one reader.
+
+#include <chrono>
+#include <fcntl.h>
+#include <list>
+#include <memory>
+#include <mutex>
+#include <new>
+#include <unistd.h>
+#include <unordered_map>
+
+namespace {
+
+// the largest BGZF block, compressed or inflated (SAM spec §4.1)
+const size_t BGZF_MAX_BLOCK = 65536;
+
+struct Block {
+    uint64_t coffset;           // file offset of the block
+    uint64_t next;              // file offset of the block after it
+    std::vector<uint8_t> data;  // its inflated bytes
+};
+
+using BlockPtr = std::shared_ptr<const Block>;
+
+struct BlockReader {
+    int fd = -1;
+    size_t capacity = 0;        // inflated bytes the cache may hold
+    size_t held = 0;
+    std::list<BlockPtr> lru;    // most recently used first
+    std::unordered_map<uint64_t, std::list<BlockPtr>::iterator> where;
+    std::vector<uint8_t> comp;  // one compressed block
+    std::vector<uint8_t> recs;  // the walk's records, length-prefixed
+    z_stream zs;
+    std::mutex mu;
+    // the walk's blocks inflated, blocks the cache served, inflated
+    // bytes, and nanoseconds spent reading and inflating
+    int64_t stats[4];
+};
+
+// Reads and inflates the block at `coffset` into the cache. 1: done;
+// 0: end of file; negative: a read or format error.
+int load_block(BlockReader &r, uint64_t coffset, BlockPtr &out) {
+    auto t0 = std::chrono::steady_clock::now();
+    size_t n = 0;
+    while (n < BGZF_MAX_BLOCK) {
+        ssize_t got = pread(r.fd, r.comp.data() + n, BGZF_MAX_BLOCK - n,
+                            (off_t)(coffset + n));
+        if (got < 0) return -1;
+        if (got == 0) break;
+        n += (size_t)got;
+    }
+    if (n == 0) return 0;
+    int64_t bsize = block_size_at(r.comp.data(), n);
+    if (bsize < 0 || (size_t)bsize > n) return -2;
+    uint16_t xlen = r.comp[10] | (r.comp[11] << 8);
+    if ((size_t)bsize < 12 + (size_t)xlen + 8) return -2;
+    uint32_t isize;
+    memcpy(&isize, r.comp.data() + bsize - 4, 4);
+    if (isize > BGZF_MAX_BLOCK) return -2;
+    auto blk = std::make_shared<Block>();
+    blk->coffset = coffset;
+    blk->next = coffset + (uint64_t)bsize;
+    blk->data.resize(isize);
+    if (isize > 0) {
+        if (inflateReset(&r.zs) != Z_OK) return -3;
+        r.zs.next_in = r.comp.data() + 12 + xlen;
+        r.zs.avail_in = (uInt)(bsize - 12 - xlen - 8);
+        r.zs.next_out = blk->data.data();
+        r.zs.avail_out = isize;
+        if (inflate(&r.zs, Z_FINISH) != Z_STREAM_END) return -4;
+    }
+    r.lru.push_front(blk);
+    r.where[coffset] = r.lru.begin();
+    r.held += isize;
+    while (r.held > r.capacity && r.lru.size() > 1) {
+        const BlockPtr &old = r.lru.back();
+        r.held -= old->data.size();
+        r.where.erase(old->coffset);
+        r.lru.pop_back();
+    }
+    r.stats[0]++;
+    r.stats[2] += isize;
+    r.stats[3] += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                      std::chrono::steady_clock::now() - t0).count();
+    out = std::move(blk);
+    return 1;
+}
+
+// The block at `coffset`, from the cache or the file (load_block's codes).
+int get_block(BlockReader &r, uint64_t coffset, BlockPtr &out) {
+    auto it = r.where.find(coffset);
+    if (it == r.where.end()) return load_block(r, coffset, out);
+    r.lru.splice(r.lru.begin(), r.lru, it->second);
+    r.stats[1]++;
+    out = *it->second;
+    return 1;
+}
+
+// A virtual offset (c, u) in the walk. Past a block's last byte it
+// moves to (next block, 0) at once, so that it compares with a chunk's
+// end as that offset does; `blk` is block c once the walk has read from
+// it, so a block is looked up once for each run of reads from it.
+struct Cursor {
+    BlockPtr blk;
+    uint64_t c = 0;
+    uint32_t u = 0;
+
+    void seek(uint64_t voffset) {
+        uint64_t c_new = voffset >> 16;
+        if (!blk || blk->coffset != c_new) blk.reset();
+        c = c_new;
+        u = (uint32_t)(voffset & 0xFFFF);
+    }
+
+    bool before(uint64_t voffset) const {
+        uint64_t ce = voffset >> 16;
+        return c < ce || (c == ce && u < (voffset & 0xFFFF));
+    }
+
+    // Copies n bytes to dst. 1: done; 0: end of file before the first
+    // byte; negative: an error, or the file ended inside the n bytes.
+    int read(BlockReader &r, uint8_t *dst, size_t n) {
+        bool started = false;
+        while (n > 0) {
+            if (!blk) {
+                int rc = get_block(r, c, blk);
+                if (rc == 0) return started ? -5 : 0;
+                if (rc < 0) return rc;
+            }
+            size_t size = blk->data.size();
+            if (u > size) return -6;
+            size_t take = std::min(n, size - u);
+            memcpy(dst, blk->data.data() + u, take);
+            dst += take;
+            n -= take;
+            u += (uint32_t)take;
+            started = started || take > 0;
+            if (u == size) {
+                c = blk->next;
+                u = 0;
+                blk.reset();
+            }
+        }
+        return 1;
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// A reader of the BAM at `path` whose cache holds up to `cache_bytes`
+// inflated bytes (at least the block in use); NULL if it cannot open.
+void *trgt_reader_open(const char *path, size_t cache_bytes) {
+    int fd = open(path, O_RDONLY | O_CLOEXEC);
+    if (fd < 0) return nullptr;
+    BlockReader *r = new (std::nothrow) BlockReader();
+    if (r == nullptr) {
+        close(fd);
+        return nullptr;
+    }
+    memset(&r->zs, 0, sizeof(r->zs));
+    if (inflateInit2(&r->zs, -15) != Z_OK) {
+        close(fd);
+        delete r;
+        return nullptr;
+    }
+    r->fd = fd;
+    r->capacity = cache_bytes;
+    r->comp.resize(BGZF_MAX_BLOCK);
+    return r;
+}
+
+void trgt_reader_close(void *handle) {
+    BlockReader *r = (BlockReader *)handle;
+    if (r == nullptr) return;
+    inflateEnd(&r->zs);
+    close(r->fd);
+    delete r;
+}
+
+// One locus's walk over `n_chunks` (begin, end) virtual-offset pairs,
+// sorted and disjoint, then trgt_extract_reads over the records found:
+// the same blob, n_pass and n_filt as that function gives over them.
+// stats: blocks inflated, blocks the cache served (each block counted
+// once a walk), inflated bytes, nanoseconds reading and inflating.
+int trgt_reader_extract(void *handle, const uint64_t *chunks,
+                        size_t n_chunks, int32_t tid, int32_t beg,
+                        int32_t end, int32_t region_start,
+                        int32_t region_end, int32_t clip_lo,
+                        int32_t clip_hi, double min_rq, uint8_t **out,
+                        size_t *out_size, int64_t *n_pass, int64_t *n_filt,
+                        int64_t *stats) {
+    BlockReader &r = *(BlockReader *)handle;
+    std::lock_guard<std::mutex> lock(r.mu);
+    memset(r.stats, 0, sizeof(r.stats));
+    r.recs.clear();
+    Cursor cur;
+    bool done = false;
+    for (size_t k = 0; k < n_chunks && !done; k++) {
+        cur.seek(chunks[2 * k]);
+        while (cur.before(chunks[2 * k + 1])) {
+            // block_size, refID, pos: enough to know whether to stop
+            size_t at = r.recs.size();
+            r.recs.resize(at + 12);
+            int rc = cur.read(r, r.recs.data() + at, 12);
+            if (rc == 0) {
+                r.recs.resize(at);
+                done = true;
+                break;
+            }
+            if (rc < 0) return rc;
+            int32_t block_size, ref_id, pos;
+            memcpy(&block_size, r.recs.data() + at, 4);
+            memcpy(&ref_id, r.recs.data() + at + 4, 4);
+            memcpy(&pos, r.recs.data() + at + 8, 4);
+            if (block_size < 32) return -7;
+            if (ref_id != tid || pos >= end) {
+                // sorted by position: every later record is past too
+                r.recs.resize(at);
+                done = true;
+                break;
+            }
+            r.recs.resize(at + 4 + (size_t)block_size);
+            rc = cur.read(r, r.recs.data() + at + 12,
+                          (size_t)block_size - 8);
+            if (rc != 1) return rc < 0 ? rc : -5;
+        }
+    }
+    memcpy(stats, r.stats, sizeof(r.stats));
+    return trgt_extract_reads(r.recs.data(), r.recs.size(), 0,
+                              r.recs.size(), tid, beg, end, region_start,
+                              region_end, clip_lo, clip_hi, min_rq, out,
+                              out_size, n_pass, n_filt);
 }
 
 }  // extern "C"

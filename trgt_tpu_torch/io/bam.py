@@ -207,6 +207,11 @@ class BaiIndex:
             self.refs.append((bins, ioffsets))
 
     def chunks_for(self, tid: int, beg: int, end: int) -> List[Tuple[int, int]]:
+        """The merged chunks that hold the records overlapping [beg, end),
+        each begun no earlier than the linear index's floor for `beg`'s
+        16 kb tile, as htslib's iterator begins them: the first record
+        overlapping that tile is there, and every record before it ends
+        before the tile, so before `beg`."""
         if tid < 0 or tid >= len(self.refs):
             return []
         bins, ioffsets = self.refs[tid]
@@ -216,9 +221,9 @@ class BaiIndex:
             min_offset = ioffsets[iv]
         chunks = []
         for bin_id in _reg2bins(beg, end):
-            for c in bins.get(bin_id, ()):
-                if c[1] > min_offset:
-                    chunks.append(c)
+            for c_beg, c_end in bins.get(bin_id, ()):
+                if c_end > min_offset:
+                    chunks.append((max(c_beg, min_offset), c_end))
         chunks.sort()
         merged: List[Tuple[int, int]] = []
         for beg_v, end_v in chunks:
@@ -248,9 +253,15 @@ class BamReader:
         self.header = BamHeader(text, references)
         self._body_voffset = self._bgzf.tell_virtual()
         self._index: Optional[BaiIndex] = None
+        # the native reader and its cache of inflated blocks that
+        # reads/native_extract.py walks this file with, made at first use
+        self.block_reader = None
 
     def close(self):
         self._bgzf.close()
+        if self.block_reader is not None:
+            self.block_reader.close()
+            self.block_reader = None
 
     def __enter__(self):
         return self

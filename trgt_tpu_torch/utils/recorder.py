@@ -36,15 +36,19 @@ from collections import Counter
 # The counts: reads the impure-read filter labelled with the Viterbi path
 # and dropped ("impure_filter_labelled", "impure_filter_dropped"), and the
 # mapped primary BAM records overlapping each locus's fetch window that
-# the native extraction walked to ("extract_records")
+# the native extraction walked to ("extract_records"), and the BGZF
+# blocks its walks touched: inflated ("extract_blocks_inflated", their
+# inflated bytes "extract_inflated_bytes") or served by the reader's
+# cache ("extract_blocks_cached"), each counted once a walk
 STAGE_TIMES: Counter = Counter()
 STAGE_COUNTS: Counter = Counter()
 # perf_counter() + OFFSET is time.time(), the wall clock
 OFFSET = time.time() - time.perf_counter()
 # events a process keeps of each kind, top-level and nested (some 20 MB
 # each). On 30x WGS reads a worker records 1.1-1.3 top-level spans a locus
-# (its main thread's, a batch's extract) and 22-28 nested (an extract's
-# parts, two for each BAI chunk): 10^5 hold some 80,000 and 3,500 loci
+# (its main thread's, a batch's extract) and 3 nested (the parts of a
+# locus's extract: inflate, decode, build): 10^5 hold some 80,000 and
+# 33,000 loci
 MAX_EVENTS = 100_000
 # {worker index: {"dropped": n, "dropped_nested": n, "rows": [[card, id,
 # name, start, end, parent, thread], ...]}} of the last worker pool, in
@@ -89,22 +93,36 @@ def timed(name: str):
     finally:
         t1 = time.perf_counter()
         stack.pop()
-        event = (sid, name, t0 + OFFSET, t1 + OFFSET, parent,
-                 threading.current_thread().name)
-        nested = parent is not None
+        _keep(name, t1 - t0, (sid, name, t0 + OFFSET, t1 + OFFSET, parent,
+                              threading.current_thread().name))
+
+
+def add_time(name: str, seconds: float, start: float = None) -> None:
+    """Add seconds timed otherwise (a thread's CPU time) to `name`. With
+    `start`, a `perf_counter()` reading, the seconds are also a span of
+    the timeline from `start`, inside the span open on this thread: a
+    part of a native call that reports its own time."""
+    if start is None or not tracing():
         with _LOCK:
-            STAGE_TIMES[name] += t1 - t0
-            if _KEPT[nested] < MAX_EVENTS:
-                _KEPT[nested] += 1
-                _TIMELINE.append(event)
-            else:
-                _DROPPED[nested] += 1
+            STAGE_TIMES[name] += seconds
+        return
+    stack = getattr(_OPEN, "stack", None)
+    parent = stack[-1] if stack else None
+    event = (next(_IDS), name, start + OFFSET, start + seconds + OFFSET,
+             parent, threading.current_thread().name)
+    _keep(name, seconds, event)
 
 
-def add_time(name: str, seconds: float) -> None:
-    """Add seconds timed otherwise (a thread's CPU time) to `name`."""
+def _keep(name: str, seconds: float, event: tuple) -> None:
+    """Add a span's seconds and keep its event while its store has room."""
+    nested = event[4] is not None
     with _LOCK:
         STAGE_TIMES[name] += seconds
+        if _KEPT[nested] < MAX_EVENTS:
+            _KEPT[nested] += 1
+            _TIMELINE.append(event)
+        else:
+            _DROPPED[nested] += 1
 
 
 def count(name: str, n: int = 1) -> None:
